@@ -7,10 +7,14 @@ Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
 
 1. the card's name and power limit (nvidia-smi), then the build of the
-   CUDA kernels from csrc/stencil.cu (seconds, ptxas resource lines);
+   CUDA kernels from csrc/stencil.cu (seconds, ptxas resource lines:
+   registers, shared memory, spills);
 2. each kernel against its plain PyTorch version on the card, bit for bit
-   (tolerance 0), on random tables at the 1M-entity geometry and on edge
-   cases (attack ties, a one-cell siege, bucket overflow), with times;
+   (tolerance 0, every output slot), on random tables at the 1M-entity
+   geometry and on edge cases (attack ties, a one-cell siege, bucket
+   overflow, grid widths 1, 2, TX + 1 and 13, the Kv = 128 / Ka = 48
+   boost ceiling, the chunk kernels, empty slots reached from the
+   origin, inputs at a 4-byte offset), with times;
 3. the main path: ``build_benchmark_world(1_000_000)`` on ``cuda`` under
    the default engine 1, warmed up, then ``run_device(90)``: tick times,
    entity-ticks/s and each kernel's launches in that run;
@@ -99,8 +103,11 @@ def nbhd_sum(c: torch.Tensor) -> torch.Tensor:
 
 
 def population(n, cap, extent, seed, *, clump=None, atk_hi=30, duty=1 / 30,
-               scenes=1, groups=1, dev="cuda"):
-    """A random combat population on ``cap`` rows (the first ``n`` alive)."""
+               scenes=1, groups=1, origin=0, dev="cuda"):
+    """A random combat population on ``cap`` rows (the first ``n`` alive).
+    ``origin`` > 0 puts that many attacking scene-0, group-0 entities
+    within 3 units of (0, 0), where they reach the all-zero rows of empty
+    victim slots."""
     rng = np.random.default_rng(seed)
     lo, hi = clump if clump is not None else (0.0, extent)
     pos = np.zeros((cap, 2), np.float32)
@@ -112,6 +119,10 @@ def population(n, cap, extent, seed, *, clump=None, atk_hi=30, duty=1 / 30,
     camp = rng.integers(0, 2, cap).astype(np.float32)
     scene = rng.integers(1, scenes + 1, cap).astype(np.float32)
     group = rng.integers(0, groups, cap).astype(np.float32)
+    if origin:
+        pos[:origin] = rng.uniform(0.0, 3.0, (origin, 2)).astype(np.float32)
+        scene[:origin], group[:origin], camp[:origin] = 0.0, 0.0, 1.0
+        attacking[:origin] = True
     eff = np.where(attacking, atk, 0.0).astype(np.float32)
     rows = np.arange(cap, dtype=np.float32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
@@ -123,31 +134,55 @@ def population(n, cap, extent, seed, *, clump=None, atk_hi=30, duty=1 / 30,
     )
 
 
-def kernels_vs_plain(pop, cell, width, kv, ka, radius, timed: bool):
-    """Both kernels against their plain versions on one population."""
+def misalign(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` at a 4-byte offset from an 8-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def kernels_vs_plain(pop, cell, width, kv, ka, radius, timed: bool, plans=None,
+                     unaligned=False):
+    """Both kernels against their plain versions on one population, every
+    output slot compared; ``plans`` = (combat, fused) FoldPlans to launch
+    under instead of the planner's; ``unaligned`` hands the kernels their
+    inputs at a 4-byte offset.  The row tables are compared with
+    ``slot_rows`` too."""
     vt, at = sc.build_cell_table_pair(pop["pos"], pop["alive"], pop["vic"],
                                       pop["attacking"], pop["att"], cell, width, kv, ka)
     vs, ats = sc.build_cell_slots_pair(pop["pos"], pop["alive"], pop["attacking"],
                                        cell, width, kv, ka)
     check(torch.equal(vt.slot_of, vs.slot_of) and torch.equal(at.slot_of, ats.slot_of),
           "table and slot builders place rows identically")
-    k1 = sck.combat_fold(vt, at, radius)
+    n = pop["bank"].shape[0]
+    plans = plans or (sck.plan_fold("combat", width, kv, ka),
+                      sck.plan_fold("fused", width, kv, ka))
+    kt, bank = (vt, at), pop["bank"]
+    if unaligned:
+        kt = (vt._replace(payload=misalign(vt.payload)), at._replace(payload=misalign(at.payload)))
+        bank = misalign(bank)
+        check(bank.data_ptr() % 8 == 4, "the unaligned case is unaligned")
+    k1 = sck.combat_fold_planned(*kt, radius, plans[0])
     p1 = sck.combat_fold_plain(vt, at, radius)
-    k2 = sck.fused_neighborhood(pop["bank"], vs, ats, radius)
+    k2 = sck.fused_neighborhood_planned(bank, vs, ats, radius, plans[1])
     p2 = sck.fused_neighborhood_plain(pop["bank"], vs, ats, radius)
-    if pop["pos"].is_cuda:
-        torch.cuda.synchronize()
+    for tab, slots in zip(sck.row_tables(vs, ats, n), (vs, ats)):
+        check(torch.equal(torch.where(tab == 0, n, tab - 1), sck.slot_rows(slots, n)),
+              "row tables equal slot_rows")
+    torch.cuda.synchronize()
     err1 = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k1, p1))
     err2 = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k2, p2))
     check(err1 == 0, "combat_fold kernel equals its plain version")
     check(err2 == 0, "fused_neighborhood kernel equals its plain version")
     check(torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1]),
           "split and fused kernels agree on damage and best attacker")
+    empty = vt.grid_view()[..., sck.V_FEATS] == 0
     out = {"vic_dropped": int(vt.dropped), "att_dropped": int(at.dropped),
-           "hits": int((k1[0] > 0).sum()), "err": [err1, err2]}
+           "hits": int((k1[0] > 0).sum()), "empty_slot_hits": int(((k1[0] > 0) & empty).sum()),
+           "empty_slot_nbr": int(((k2[2] > 0) & empty).sum()), "err": [err1, err2],
+           "plans": [[p.ty, p.tx, p.threads, p.smem, p.chunk] for p in plans]}
     if not timed:
         return out
-    n = pop["bank"].shape[0]
     n_slots = width * width * kv
     occ_v = cell_counts(vs.slot_of, width, kv)
     occ_a = cell_counts(ats.slot_of, width, ka)
@@ -173,39 +208,70 @@ def kernels_vs_plain(pop, cell, width, kv, ka, radius, timed: bool):
             plain_ms=time_ms(
                 lambda: sck.fused_neighborhood_plain(pop["bank"], vs, ats, radius), reps=5),
             bound_ms=b2[0], bound_by=b2[1], pairs=pairs2,
-            # the wrapper's two slot-to-row scatters, part of its ms above
-            slot_rows_ms=time_ms(
-                lambda: (sck.slot_rows(vs, n), sck.slot_rows(ats, n)))),
+            # the wrapper's row-table build, part of its ms above
+            row_tables_ms=time_ms(lambda: sck.row_tables(vs, ats, n))),
     }
     return out
 
 
 def phase_kernels():
-    """Random tables at the 1M geometry, plus ties, a siege and overflow."""
+    """Random tables at the 1M geometry, plus ties, a siege, overflow, grid
+    widths around the tile (1, 2, TX + 1, not a multiple of the tile), a
+    dense clump at the boost ceiling (Kv = 128, Ka = 48), the chunk
+    kernels (planned for Kv = Ka = 1024, and forced with 7-slot chunks)
+    and empty victim slots within reach of entities at the origin."""
     cap = 1 << int(np.ceil(np.log2(N_MAIN)))
     extent = float(np.sqrt(N_MAIN / 0.4))
     cell, radius = 4.0, 4.0
     width = int(extent / cell)
     kv = sc.auto_bucket(cap, width)
     ka = sc.auto_bucket(int(np.ceil(cap / 30)), width, lo=4, align=2)
+    tx = sck.plan_fold("combat", width, kv, ka).tx
+    forced = (sck.FoldPlan("combat", 5, 1, 1, 64, 7 * 32 + 16, 7),
+              sck.FoldPlan("fused", 5, 1, 1, 64, 7 * 28, 7))
+    # name -> (population, width, kv, ka, timed, plans); "unaligned" hands
+    # the kernels inputs at a 4-byte offset
     cases = {
-        "random_1m": (population(N_MAIN, cap, extent, 1), kv, ka, True),
+        "random_1m": (population(N_MAIN, cap, extent, 1), width, kv, ka, True, None),
         "ties_1m": (population(N_MAIN, cap, extent, 2, atk_hi=1, duty=0.2,
-                               scenes=2, groups=2), kv, ka, False),
+                               scenes=2, groups=2), width, kv, ka, False, None),
         "siege": (population(4000, 4096, 40.0, 3, clump=(8.5, 11.5), duty=0.5),
-                  16, 8, False),
-        "overflow": (population(20000, 1 << 15, 40.0, 4, duty=0.3), 4, 4, False),
+                  10, 16, 8, False, None),
+        "overflow": (population(20000, 1 << 15, 40.0, 4, duty=0.3), 10, 4, 4, False, None),
+        "width_1": (population(60, 64, 4.0, 5, duty=0.5), 1, 64, 32, False, None),
+        "width_2": (population(120, 128, 8.0, 6, duty=0.5, scenes=2), 2, 32, 16, False, None),
+        "width_tx_plus_1": (population(1300, 2048, 4.0 * (tx + 1), 7, duty=0.2),
+                            tx + 1, kv, ka, False, None),
+        "width_13": (population(2700, 4096, 52.0, 8, duty=0.2, groups=2), 13, kv, ka,
+                     False, None),
+        "dense_boost_ceiling": (population(6000, 8192, 24.0, 9, clump=(0.0, 24.0), duty=0.3),
+                                6, 128, 48, False, None),
+        "chunk_planned": (population(2500, 4096, 12.0, 10, duty=0.5), 3, 1024, 1024,
+                          False, None),
+        "chunk_forced": (population(1500, 2048, 20.0, 11, duty=0.5, origin=5), 5, 100, 60,
+                         False, forced),
+        "origin": (population(600, 1024, 40.0, 12, duty=0.3, scenes=2, origin=12),
+                   10, 16, 8, False, None),
+        "unaligned": (population(600, 1024, 40.0, 13, duty=0.3, scenes=2, origin=6),
+                      10, 16, 8, False, None),
     }
     results, timing = {}, None
-    for name, (pop, k_v, k_a, timed) in cases.items():
-        w = width if name.endswith("1m") else 10
+    for name, (pop, w, k_v, k_a, timed, plans) in cases.items():
         c = cell if name.endswith("1m") else 4.0
-        r = kernels_vs_plain(pop, c, w, k_v, k_a, radius, timed)
+        r = kernels_vs_plain(pop, c, w, k_v, k_a, radius, timed, plans,
+                             unaligned=name == "unaligned")
         if timed:
             timing = r.pop("timing")
         results[name] = r
     check(results["siege"]["vic_dropped"] > 0, "the siege overflows its cell")
     check(results["overflow"]["vic_dropped"] > 0, "the overflow case drops rows")
+    check(all(p[4] > 0 for p in results["chunk_planned"]["plans"]),
+          "Kv = Ka = 1024 plans the chunk kernels")
+    check(all(p[4] == 0 for p in results["dense_boost_ceiling"]["plans"]),
+          "the boost ceiling runs tiled")
+    for name in ("origin", "chunk_forced"):
+        check(results[name]["empty_slot_hits"] > 0 and results[name]["empty_slot_nbr"] > 0,
+              f"{name}: empty victim slots have non-trivial outputs")
     emit({"phase": "kernels_vs_plain", "tolerance": 0, "geometry": {
         "width": width, "kv": kv, "ka": ka, "capacity": cap}, "cases": results,
         "timing_1m": timing})
@@ -371,7 +437,7 @@ def main() -> int:
     sck.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in (sck.BUILD_LOG or "").splitlines()
-                    if "registers" in ln or "Compiling entry" in ln]})
+                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
 
     timing, max_err = phase_kernels()
     main_launches = phase_main_path()

@@ -19,6 +19,13 @@ kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 ``csrc/build/`` (:func:`library`) and loaded with ctypes.  Each wrapper
 counts its launches in ``KERNELS[name].launches``.
 
+:func:`plan_fold` picks each launch's tile of cells, threads and shared
+memory from the grid width and buckets (or the chunk kernels, when not
+even a one-cell tile's halo fits a block); :func:`combat_fold_planned`
+and :func:`fused_neighborhood_planned` launch under a given plan.  The
+fused kernel reads its row tables from :func:`row_tables` (a fill and one
+scatter launch), whose plain version is :func:`slot_rows`.
+
 Feature layouts (floats; every int column is exact below 2^24):
 
     victim payload   [n_cells*Kv + 1, 6]: x, y, camp, scene, group, occ
@@ -36,13 +43,15 @@ is the largest attack, ties to the smallest row.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -206,6 +215,125 @@ def fused_neighborhood_plain(bank: torch.Tensor, vic_slots: CellSlots,
     return inc, _best_rows(bestr), nbr
 
 
+# -- the launch planner --------------------------------------------------------
+
+SMEM_LIMIT = 232_448  # the most shared memory one H100 block may use
+# a tile within this leaves room for four blocks on one SM
+SMEM_TARGET = 48 * 1024
+# tile shapes (rows, columns of cells), largest first
+TILES = ((8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+MAX_THREADS = 256
+CHUNK_SLOTS = 1024  # slots a chunk streams at most
+
+
+def _up16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def combat_tile_bytes(ty: int, tx: int, kv: int, ka: int) -> int:
+    """Shared memory of one combat_fold_kernel tile: the attacker halo
+    rows (32 B a slot), per-cell counts and shift masks, and the origin
+    flag (csrc/stencil.cu FoldTile).  Victim rows stream from global
+    memory."""
+    aseg = _up16((tx + 2) * ka * 32) + 16
+    return (ty + 2) * aseg + _up16((ty + 2) * (tx + 2) * 4) + _up16(ty * tx * 4) + 16
+
+
+def fused_tile_bytes(ty: int, tx: int, kv: int, ka: int) -> int:
+    """Shared memory of one fused_neighborhood_kernel tile: the halo's
+    index rows, the gathered victim lists (28 B an entry, packed per halo
+    row) and attacker lists (28 B an entry, an odd stride per cell), the
+    tile's slot flags, the cell starts and counts, the tile cells' starts
+    and the flag (FusedTile)."""
+    nh = (ty + 2) * (tx + 2)
+    nv, na = nh * kv, nh * (ka | 1)
+    vseg = _up16((tx + 2) * kv * 4) + 16
+    aseg = _up16((tx + 2) * ka * 4) + 16
+    b = _up16(nv * 16 + na * 16 + na * 8)
+    b = _up16(b + (ty + 2) * (vseg + aseg) + nv * 4)  # index rows, vrow
+    b = _up16(b + nv * 4)  # vcamp
+    b = _up16(b + nv * 4)  # vslot
+    b = _up16(b + na * 4)  # arow
+    b = _up16(b + ty * tx * kv * 4)  # vpos
+    b = _up16(b + (ty + 2) * (tx + 3) * 4)  # cstart
+    b = _up16(b + nh * 4)  # acount
+    b = _up16(b + (ty * tx + 1) * 4)  # ostart
+    return b + 16
+
+
+def tile_bytes(kind: str, ty: int, tx: int, kv: int, ka: int) -> int:
+    """Shared memory of one tile-kernel block of ``kind``."""
+    return (combat_tile_bytes if kind == "combat" else fused_tile_bytes)(ty, tx, kv, ka)
+
+
+# bytes a streamed slot takes in the chunk kernels, and their fixed pad
+_CHUNK_BYTES = {"combat": (32, 16), "fused": (28, 0)}
+
+
+class FoldPlan(NamedTuple):
+    """One launch of a fold kernel over an [H, W] grid (H == W).
+
+    chunk == 0: the tile kernel, one block per ty x tx tile in row-major
+    order; chunk > 0: the chunk kernel, one block per cell streaming
+    ``chunk`` slots at a time.  ``smem`` is the dynamic shared memory of a
+    block."""
+
+    kind: str
+    width: int
+    ty: int
+    tx: int
+    threads: int
+    smem: int
+    chunk: int
+
+    @property
+    def blocks(self) -> int:
+        w = self.width
+        return -(-w // self.ty) * -(-w // self.tx)
+
+    def tiles(self):
+        """(y0, x0, rows, cols) of every block's tile, clipped to the grid,
+        as numpy arrays in block order."""
+        import numpy as np
+
+        w = self.width
+        b = np.arange(self.blocks, dtype=np.int64)
+        gx = -(-w // self.tx)
+        y0, x0 = (b // gx) * self.ty, (b % gx) * self.tx
+        return y0, x0, np.minimum(self.ty, w - y0), np.minimum(self.tx, w - x0)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_fold(kind: str, width: int, kv: int, ka: int,
+              smem_limit: int = SMEM_LIMIT) -> FoldPlan:
+    """Tile and block shape for one fold launch.  The first tile of TILES
+    (clipped to the grid) whose shared memory is within SMEM_TARGET; else
+    the one-cell tile if it fits ``smem_limit`` (the card's most per
+    block); else the chunk kernel with as many slots per chunk as fit.
+    Raises when nothing fits."""
+    if kind not in _CHUNK_BYTES:
+        raise ValueError(f"unknown fold kind {kind!r}")
+    target = min(SMEM_TARGET, smem_limit)
+    pick = None
+    for ty, tx in TILES:
+        ty, tx = max(1, min(ty, width)), max(1, min(tx, width))
+        if tile_bytes(kind, ty, tx, kv, ka) <= target:
+            pick = (ty, tx)
+            break
+    if pick is None and tile_bytes(kind, 1, 1, kv, ka) <= smem_limit:
+        pick = (1, 1)
+    if pick is not None:
+        ty, tx = pick
+        threads = min(MAX_THREADS, max(128, -(-ty * tx * kv // 32) * 32))
+        return FoldPlan(kind, width, ty, tx, threads, tile_bytes(kind, ty, tx, kv, ka), 0)
+    per_slot, pad = _CHUNK_BYTES[kind]
+    chunk = min(CHUNK_SLOTS, max(kv, ka, 1), (smem_limit - pad) // per_slot)
+    if chunk < 1:
+        raise ValueError(f"no {kind} fold plan fits {smem_limit} B of shared memory")
+    threads = min(MAX_THREADS, max(32, -(-kv // 32) * 32))
+    return FoldPlan(kind, width, 1, 1, threads, chunk * per_slot + pad, chunk)
+
+
 # -- the CUDA library --------------------------------------------------------
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -246,10 +374,12 @@ def library() -> ctypes.CDLL:
         os.replace(tmp, so)
     BUILD_LOG = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nf_combat_fold.argtypes = [p, i, p, i, i, i, i, i, f, p, p, p]
+    p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.nf_combat_fold.argtypes = [p, p, i, i, i, i, f, i, i, i, i, i, p, p, p]
     lib.nf_combat_fold.restype = i
-    lib.nf_fused_neighborhood.argtypes = [p, i, p, p, i, i, i, i, f, p, p, p, p]
+    lib.nf_slot_rows.argtypes = [p, p, i, q, q, p, p, p]
+    lib.nf_slot_rows.restype = i
+    lib.nf_fused_neighborhood.argtypes = [p, p, p, i, i, i, i, f, i, i, i, i, i, p, p, p, p]
     lib.nf_fused_neighborhood.restype = i
     lib.nf_error_string.argtypes = [i]
     lib.nf_error_string.restype = ctypes.c_char_p
@@ -277,66 +407,107 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _on(device: torch.device):
+    """The device as the current one for a launch; no switch when it
+    already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _plan_args(plan: FoldPlan):
+    return plan.ty, plan.tx, plan.threads, plan.smem, plan.chunk
+
+
 # -- the wrappers --------------------------------------------------------------
 
 
 def combat_fold(vic_table: CellTable, att_table: CellTable,
                 radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Engine 1: the split-table combat fold.  CPU tensors run
-    :func:`combat_fold_plain`; CUDA tensors launch ``combat_fold_kernel``.
-    Returns (inc, bestr), each [H, W, Kv] int32."""
-    vp, ap = vic_table.payload, att_table.payload
-    if vp.device.type == "cpu":
+    :func:`combat_fold_plain`; CUDA tensors launch ``combat_fold_kernel``
+    (or its chunk form) as :func:`plan_fold` plans it.  Returns (inc,
+    bestr), each [H, W, Kv] int32."""
+    if vic_table.payload.device.type == "cpu":
         return combat_fold_plain(vic_table, att_table, radius)
+    plan = plan_fold("combat", vic_table.width, vic_table.bucket, att_table.bucket)
+    return combat_fold_planned(vic_table, att_table, radius, plan)
+
+
+def combat_fold_planned(vic_table: CellTable, att_table: CellTable, radius: float,
+                        plan: FoldPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`combat_fold` on CUDA tensors under a given launch plan."""
+    vp, ap = vic_table.payload, att_table.payload
     dev = vp.device
     if dev.type != "cuda":
-        raise ValueError(f"combat_fold runs on cpu or cuda, not {dev}")
+        raise ValueError(f"combat_fold_kernel runs on cuda, not {dev}")
     w, kv, ka = vic_table.width, vic_table.bucket, att_table.bucket
-    if att_table.width != w:
-        raise ValueError("victim and attacker tables differ in grid width")
+    if att_table.width != w or plan.width != w or plan.kind != "combat":
+        raise ValueError("tables and plan differ in grid width or kind")
     _check(vp, "victim payload", torch.float32, (w * w * kv + 1, V_FEATS + 1), dev)
     _check(ap, "attacker payload", torch.float32, (w * w * ka + 1, A_FEATS + 1), dev)
-    inc = torch.empty((w, w, kv), dtype=torch.int32, device=dev)
-    bestr = torch.empty_like(inc)
+    inc, bestr = torch.empty((2, w, w, kv), dtype=torch.int32, device=dev)
     lib = library()
-    with torch.cuda.device(dev):
+    with _on(dev):
         err = lib.nf_combat_fold(
-            vp.data_ptr(), V_FEATS + 1, ap.data_ptr(), A_FEATS + 1,
-            w, w, kv, ka, float(radius) * float(radius),
-            inc.data_ptr(), bestr.data_ptr(), _stream(dev))
+            vp.data_ptr(), ap.data_ptr(), w, w, kv, ka, float(radius) * float(radius),
+            *_plan_args(plan), inc.data_ptr(), bestr.data_ptr(), _stream(dev))
     _raise_on(lib, err, "combat_fold_kernel")
     KERNELS["combat_fold"].launches += 1
     return inc, bestr
+
+
+def row_tables(vic_slots: CellSlots, att_slots: CellSlots,
+               n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's row tables on CUDA, one zero fill each and one
+    scatter launch for both: [H, W, K] int32 holding row + 1 per slot, 0
+    for an empty slot (``slot_rows`` + 1 with its sentinel ``n`` as 0)."""
+    dev = vic_slots.slot_of.device
+    w, kv, ka = vic_slots.width, vic_slots.bucket, att_slots.bucket
+    _check(vic_slots.slot_of, "victim slot_of", torch.int32, (n,), dev)
+    _check(att_slots.slot_of, "attacker slot_of", torch.int32, (n,), dev)
+    vtab = torch.empty((w, w, kv), dtype=torch.int32, device=dev)
+    atab = torch.empty((w, w, ka), dtype=torch.int32, device=dev)
+    lib = library()
+    with _on(dev):
+        err = lib.nf_slot_rows(
+            vic_slots.slot_of.data_ptr(), att_slots.slot_of.data_ptr(), n,
+            vtab.numel(), atab.numel(), vtab.data_ptr(), atab.data_ptr(), _stream(dev))
+    _raise_on(lib, err, "slot_rows_kernel")
+    return vtab, atab
 
 
 def fused_neighborhood(bank: torch.Tensor, vic_slots: CellSlots,
                        att_slots: CellSlots, radius: float):
     """Engine 2: the table-free fold gathered from ``bank`` [N, 6], plus the
     AOI occupancy count.  CPU tensors run :func:`fused_neighborhood_plain`;
-    CUDA tensors launch ``fused_neighborhood_kernel``.  Returns (inc,
-    bestr, nbr), each [H, W, Kv] int32."""
-    dev = bank.device
-    if dev.type == "cpu":
+    CUDA tensors build the row tables (:func:`row_tables`) and launch
+    ``fused_neighborhood_kernel`` (or its chunk form) as :func:`plan_fold`
+    plans it.  Returns (inc, bestr, nbr), each [H, W, Kv] int32."""
+    if bank.device.type == "cpu":
         return fused_neighborhood_plain(bank, vic_slots, att_slots, radius)
+    plan = plan_fold("fused", vic_slots.width, vic_slots.bucket, att_slots.bucket)
+    return fused_neighborhood_planned(bank, vic_slots, att_slots, radius, plan)
+
+
+def fused_neighborhood_planned(bank: torch.Tensor, vic_slots: CellSlots,
+                               att_slots: CellSlots, radius: float, plan: FoldPlan):
+    """:func:`fused_neighborhood` on CUDA tensors under a given plan."""
+    dev = bank.device
     if dev.type != "cuda":
-        raise ValueError(f"fused_neighborhood runs on cpu or cuda, not {dev}")
+        raise ValueError(f"fused_neighborhood_kernel runs on cuda, not {dev}")
     n = bank.shape[0]
     w, kv, ka = vic_slots.width, vic_slots.bucket, att_slots.bucket
-    if att_slots.width != w:
-        raise ValueError("victim and attacker slots differ in grid width")
+    if att_slots.width != w or plan.width != w or plan.kind != "fused":
+        raise ValueError("slots and plan differ in grid width or kind")
     _check(bank, "bank", torch.float32, (n, B_FEATS), dev)
-    _check(vic_slots.slot_of, "victim slot_of", torch.int32, (n,), dev)
-    _check(att_slots.slot_of, "attacker slot_of", torch.int32, (n,), dev)
-    vidx = slot_rows(vic_slots, n)
-    aidx = slot_rows(att_slots, n)
-    inc = torch.empty((w, w, kv), dtype=torch.int32, device=dev)
-    bestr = torch.empty_like(inc)
-    nbr = torch.empty_like(inc)
+    vtab, atab = row_tables(vic_slots, att_slots, n)
+    inc, bestr, nbr = torch.empty((3, w, w, kv), dtype=torch.int32, device=dev)
     lib = library()
-    with torch.cuda.device(dev):
+    with _on(dev):
         err = lib.nf_fused_neighborhood(
-            bank.data_ptr(), n, vidx.data_ptr(), aidx.data_ptr(),
-            w, w, kv, ka, float(radius) * float(radius),
+            bank.data_ptr(), vtab.data_ptr(), atab.data_ptr(),
+            w, w, kv, ka, float(radius) * float(radius), *_plan_args(plan),
             inc.data_ptr(), bestr.data_ptr(), nbr.data_ptr(), _stream(dev))
     _raise_on(lib, err, "fused_neighborhood_kernel")
     KERNELS["fused_neighborhood"].launches += 1

@@ -55,6 +55,94 @@ def test_kernels_match_plain_versions(cuda, n, kv, ka, clump):
     assert all(sc.KERNELS[k].launches == before[k] + 1 for k in before)
 
 
+def _edge_population(n, extent, seed, *, clump=None, duty=0.3, origin=0):
+    """A combat population; ``origin`` > 0 puts that many attacking scene-0,
+    group-0 entities within 3 units of (0, 0), within reach of the
+    all-zero rows of empty victim slots."""
+    rng = np.random.default_rng(seed)
+    lo, hi = clump or (0.0, extent)
+    pos = rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+    alive = rng.random(n) < 0.9
+    attacking = alive & (rng.random(n) < duty)
+    atk = rng.integers(1, 30, n).astype(np.float32)
+    camp = rng.integers(0, 2, n).astype(np.float32)
+    scene = rng.integers(1, 3, n).astype(np.float32)
+    group = rng.integers(0, 2, n).astype(np.float32)
+    if origin:
+        pos[:origin] = rng.uniform(0.0, 3.0, (origin, 2)).astype(np.float32)
+        scene[:origin], group[:origin], camp[:origin] = 0.0, 0.0, 1.0
+        alive[:origin] = attacking[:origin] = True
+    eff = np.where(attacking, atk, 0.0).astype(np.float32)
+    rows = np.arange(n, dtype=np.float32)
+    return pos, alive, attacking, np.stack([pos[:, 0], pos[:, 1], camp, scene, group], -1), \
+        np.stack([pos[:, 0], pos[:, 1], eff, camp, scene, group, rows], -1), \
+        np.stack([pos[:, 0], pos[:, 1], camp, scene, group, eff], -1)
+
+
+def _misalign(t):
+    """A copy of ``t`` at a 4-byte offset from an 8-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 8 == 4
+    return out
+
+
+# name -> (n, width, kv, ka, population knobs, forced chunk slots or 0)
+EDGE_CASES = {
+    "width_1": (60, 1, 64, 32, {"duty": 0.5}, 0),
+    "width_2": (120, 2, 32, 16, {"duty": 0.5}, 0),
+    "width_tile_plus_1": (1300, 9, 16, 6, {}, 0),  # fused tiles are 8 cells wide
+    "width_combat_tile_plus_1": (3000, 17, 16, 6, {"origin": 4}, 0),  # 16 wide
+    "width_not_tile_multiple": (2700, 13, 16, 6, {}, 0),
+    "dense_kv128_ka48": (6000, 6, 128, 48, {}, 0),
+    "chunk_planned": (2500, 3, 1024, 1024, {"duty": 0.5}, 0),
+    "chunk_forced": (1500, 5, 100, 60, {"duty": 0.5, "origin": 5}, 7),
+    "origin": (600, 10, 16, 8, {"origin": 12}, 0),
+    "unaligned_inputs": (600, 10, 16, 8, {"origin": 6}, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_kernels_match_plain_versions_on_edge_cases(cuda, case):
+    """Tolerance 0 on every output slot at grid widths around the tile, the
+    boost ceiling, the chunk kernels and empty slots reached from the
+    origin; the row tables equal ``slot_rows``."""
+    n, width, kv, ka, knobs, chunk = EDGE_CASES[case]
+    pos, alive, attacking, vic, att, bank = _edge_population(n, 4.0 * width, n, **knobs)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    vt, at = st.build_cell_table_pair(t(pos), t(alive), t(vic), t(attacking), t(att),
+                                      4.0, width, kv, ka)
+    vs, ats = st.build_cell_slots_pair(t(pos), t(alive), t(attacking), 4.0, width, kv, ka)
+    bank = t(bank)
+    kt = (vt, at)
+    if case == "unaligned_inputs":  # the kernels' 4-byte load and copy paths
+        kt = (vt._replace(payload=_misalign(vt.payload)), at._replace(payload=_misalign(at.payload)))
+        bank_k = _misalign(bank)
+    else:
+        bank_k = bank
+    if chunk:
+        plans = (sc.FoldPlan("combat", width, 1, 1, 64, chunk * 32 + 16, chunk),
+                 sc.FoldPlan("fused", width, 1, 1, 64, chunk * 28, chunk))
+    else:
+        plans = (sc.plan_fold("combat", width, kv, ka), sc.plan_fold("fused", width, kv, ka))
+    assert all((p.chunk > 0) == (case.startswith("chunk")) for p in plans)
+    k1 = sc.combat_fold_planned(*kt, 4.0, plans[0])
+    k2 = sc.fused_neighborhood_planned(bank_k, vs, ats, 4.0, plans[1])
+    for a, b in zip(k1, sc.combat_fold_plain(vt, at, 4.0)):
+        assert torch.equal(a, b)
+    p2 = sc.fused_neighborhood_plain(bank, vs, ats, 4.0)
+    for a, b in zip(k2, p2):
+        assert torch.equal(a, b)
+    for tab, slots in zip(sc.row_tables(vs, ats, n), (vs, ats)):
+        assert torch.equal(torch.where(tab == 0, n, tab - 1), sc.slot_rows(slots, n))
+    if knobs.get("origin"):
+        empty = vt.grid_view()[..., sc.V_FEATS] == 0
+        assert bool(((k1[0] > 0) & empty).any()) and bool(((p2[2] > 0) & empty).any())
+
+
 def test_world_on_cuda_matches_cpu(cuda):
     streams = []
     for device in (cuda, "cpu"):
