@@ -15,13 +15,28 @@ non-zero without printing a result:
    overflow, grid widths 1, 2, TX + 1 and 13, the Kv = 128 / Ka = 48
    boost ceiling, the chunk kernels, empty slots reached from the
    origin, inputs at a 4-byte offset), with times;
-3. the main path: ``build_benchmark_world(1_000_000)`` on ``cuda`` under
-   the default engine 1, warmed up, then ``run_device(90)``: tick times,
-   entity-ticks/s and each kernel's launches in that run;
-4. 30 observed ticks at 1M under engines 0, 1 and 2 give identical
-   ``state_digest`` streams (the engine-2 run is kernel 2's path);
+3. the main path, with (a): ``build_benchmark_world(1_000_000)`` on
+   ``cuda`` under the default engine 1; ``run_device(90)`` as a CUDA
+   graph (the default) and as the eager loop from the same state land on
+   the same ``state_digest``; tick times (median and mean), the drain
+   after the host's last launch, launches per tick, busy share, and each
+   kernel's launches in the graph run (counted per replay);
+(b) ``NF_BINNING=count`` against ``sort`` under engines 0, 1 and 2: one
+   digest after 30 graph ticks from the same state, and each setting's
+   tick time;
+(d) ``train(K=8)`` against ``tick()``: equal counters and digests over 16
+   observed ticks (after 20 that settle the overflow auto-resize), and
+   the train's peak memory;
+4. 30 observed ticks at 1M under engines 0, 1 and 2 from the same state
+   give identical ``state_digest`` streams (the engine-2 run is kernel
+   2's path);
+(c) ``NF_VERLET_SKIN=2.0`` at 1M under engines 1 and 2: graph (sort and
+   count binning) and eager runs of 30 ticks give equal digests and equal
+   rebuild/reuse counts;
 5. ``build_benchmark_world(4096)`` gives the same digest stream for 60
-   ticks on ``cuda`` and on ``cpu``.
+   ticks on ``cuda`` and on ``cpu``;
+(e) one run of the bench entry (``python -m noahgameframe_tpu_torch.bench``)
+   at 1M, its JSON line printed on a line of its own.
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -32,6 +47,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -40,7 +56,9 @@ import time
 import numpy as np
 import torch
 
+from noahgameframe_tpu_torch.core import tree
 from noahgameframe_tpu_torch.game import world as gw
+from noahgameframe_tpu_torch.kernel import kernel as km
 from noahgameframe_tpu_torch.ops import stencil as sc
 from noahgameframe_tpu_torch.ops import stencil_cuda as sck
 
@@ -280,30 +298,56 @@ def phase_kernels():
     return timing, max_err
 
 
-# -- phases 3-5 ----------------------------------------------------------------
+# -- phases 3-5 and (a)-(e) ---------------------------------------------------
 
 
-def free(world) -> None:
-    del world
+def free() -> None:
+    """Return the memory of dropped worlds to the card."""
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def profile_ticks(kernel, n: int, *, host_ops: bool) -> dict:
+def snapshot(state):
+    """A copy of every leaf of a world state, and its structure."""
+    leaves, spec, _ = tree.flatten(state)
+    return [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves], spec
+
+
+def fresh(snap):
+    """A new state built from copies of a snapshot's leaves."""
+    leaves, spec = snap
+    return tree.unflatten(spec, [x.clone() if isinstance(x, torch.Tensor) else x
+                                 for x in leaves])
+
+
+def restore_inplace(kernel, snap) -> None:
+    """Copy a snapshot into the kernel state's own tensors (those of a
+    captured graph after a graph run), so the next replay binds nothing."""
+    for dst, src in zip(tree.flatten(kernel.state)[0], snap[0]):
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(src)
+
+
+def digest(kernel) -> int:
+    return int(km.state_digest(kernel.state, kernel.store.class_order)) & 0xFFFFFFFF
+
+
+def profile_ticks(kernel, n: int, *, host_ops: bool, graph: bool) -> dict:
     """torch.profiler over n run_device ticks: the window's wall time, the
-    summed device time of its kernels and copies, and their ratio, the
-    card's busy share in that same window.  ``host_ops`` also records the
-    host's ATen calls (their count per tick and the top kernels), at a
-    higher host cost per launch: the busy share of a window without them
-    is nearer the unprofiled tick's.  Device time 0 means the profiler
-    recorded no CUDA activity on this machine."""
+    summed device time of its kernels and copies, their ratio (the card's
+    busy share in that window), launches per tick, the launches the
+    profiler saw of each hand kernel (``kernel_launches``: a fold kernel
+    or its chunk form) and the rows with the most device time (with
+    ``host_ops``, the phases' ``nf.*`` ranges among them).  ``host_ops``
+    also records the host's ATen calls, at a higher host cost per launch.  Device time 0 means the
+    profiler recorded no CUDA activity on this machine."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        kernel.run_device(n, reconcile=False)
+        kernel.run_device(n, reconcile=False, graph=graph)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -316,69 +360,174 @@ def profile_ticks(kernel, n: int, *, host_ops: bool) -> dict:
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
-    out = {"ticks": n, "wall_ms": wall_ms, "device_ms": device_ms,
+    out = {"ticks": n, "graph": graph, "wall_ms": wall_ms, "device_ms": device_ms,
            "busy_share": device_ms / wall_ms if wall_ms else 0.0,
-           "device_launches_per_tick": sum(r[2] for r in rows) / n}
+           "device_launches_per_tick": sum(r[2] for r in rows) / n,
+           "kernel_launches": {name: sum(r[2] for r in rows if any(
+               f"{name}_{form}" in r[1] for form in ("kernel", "chunk_kernel")))
+               for name in sck.KERNELS},
+           "top": [{"name": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in rows[:14]]}
     if host_ops:
         out["aten_calls_per_tick"] = sum(
             e.count for e in prof.key_averages() if e.key.startswith("aten::")) / n
-        out["top"] = [{"name": k[:80], "ms": us / 1e3, "calls": c}
-                      for us, k, c in rows[:12]]
     return out
 
 
+def timed_run(kernel, n: int, graph: bool) -> dict:
+    """run_device(n) from the host: enqueue time, total time, the drain
+    after the host's last launch, and the digest it lands on."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel.run_device(n, reconcile=False, graph=graph)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    return {"ticks": n, "total_s": total_s, "host_enqueue_s": enqueue_s,
+            "drain_after_enqueue_ms": (total_s - enqueue_s) * 1e3,
+            "mean_tick_ms": total_s / n * 1e3, "digest": digest(kernel)}
+
+
+def tick_times(kernel, n: int, graph: bool) -> list:
+    """Device time of n single run_device ticks, by CUDA events."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    for i in range(n):
+        kernel.run_device(1, reconcile=False, graph=graph)
+        events[i + 1].record()
+    events[-1].synchronize()
+    return [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+
+
 def phase_main_path():
+    """Phase 3 with (a): the main path (run_device, a CUDA graph by
+    default) against the eager loop, 90 ticks each from the same state:
+    equal digests, tick times, drain, launches per tick, busy share."""
     t0 = time.perf_counter()
     w = gw.build_benchmark_world(N_MAIN, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     k = w.kernel
     check(w.combat.resolved_engine() == 1, "engine 1 is the default on cuda")
-    k.run_device(5, reconcile=False)  # warm-up
+    s0 = snapshot(k.state)
+
+    k.state = fresh(s0)
+    eager = timed_run(k, 90, graph=False)
+    eager_ticks = tick_times(k, 30, graph=False)
+    eager_prof = profile_ticks(k, 10, host_ops=False, graph=False)
+    eager_prof_ops = profile_ticks(k, 10, host_ops=True, graph=False)
+
+    t0 = time.perf_counter()
+    k.run_device(1, reconcile=False)  # captures the graph, then one replay
     torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    restore_inplace(k, s0)
     torch.cuda.reset_peak_memory_stats()
     sck.reset_launch_counts()
-    t0 = time.perf_counter()
-    k.run_device(90, reconcile=False)
-    # run_device never waits on the card: the host is done enqueueing here,
-    # and what is left is the card draining its queue
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    graph = timed_run(k, 90, graph=True)
     launches = {name: kk.launches for name, kk in sck.KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(graph["digest"] == eager["digest"], "graph and eager digests equal after 90 ticks")
     check(launches["combat_fold"] == 90, "kernel 1 ran once per tick of the main path")
-    # per-tick device times, outside the counted run
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(31)]
-    events[0].record()
-    for i in range(30):
-        k.run_device(1, reconcile=False)
-        events[i + 1].record()
-    events[-1].synchronize()
-    ticks = [events[i].elapsed_time(events[i + 1]) for i in range(30)]
-    profile_dev = profile_ticks(k, 10, host_ops=False)
-    profile = profile_ticks(k, 10, host_ops=True)
+    graph_ticks = tick_times(k, 30, graph=True)
+    graph_prof = profile_ticks(k, 10, host_ops=False, graph=True)
+    check(graph_prof["device_ms"] > 0, "the profiler recorded the card's activity")
+    check(graph_prof["kernel_launches"]["combat_fold"] == 10,
+          "the profiler sees one combat_fold kernel per replayed tick")
     cs = k.state.classes["NPC"]
     spec = k.store.spec("NPC")
     hp = cs.i32[:, spec.slot("HP").col]
     pos = cs.vec[:, spec.slot("Position").col, :2]
     check(bool(torch.isfinite(pos).all()), "positions finite")
     check(bool(((hp >= 0) & (hp <= 100)).all()), "HP within [0, MAXHP]")
+    book = k.costbook.entry("kernel.run")
     emit({
-        "phase": "main_path", "entities": N_MAIN, "engine": 1,
-        "world_build_s": build_s, "ticks": 90,
-        "run_device_90_s": total_s, "host_enqueue_90_s": enqueue_s,
-        "drain_after_enqueue_ms": (total_s - enqueue_s) * 1e3,
-        "mean_tick_ms": total_s / 90 * 1e3,
-        "median_tick_ms": statistics.median(ticks),
-        "entity_ticks_per_s": N_MAIN * 90 / total_s,
-        "launches": launches,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile_10_ticks_device_only": profile_dev,
-        "profile_10_ticks": profile,
-        "hp_total": int(hp.sum()),
+        "phase": "main_path", "entities": N_MAIN, "engine": 1, "world_build_s": build_s,
+        "graph": {**graph, "median_tick_ms": statistics.median(graph_ticks),
+                  "entity_ticks_per_s": N_MAIN * 90 / graph["total_s"],
+                  "capture_and_first_tick_s": capture_s,
+                  "launches_per_tick": k.costbook.launches_per_replay("kernel.run"),
+                  "capture": book.last, "peak_mem_gb": peak_gb,
+                  "profile_10_ticks": graph_prof},
+        "eager": {**eager, "median_tick_ms": statistics.median(eager_ticks),
+                  "entity_ticks_per_s": N_MAIN * 90 / eager["total_s"],
+                  "profile_10_ticks_device_only": eager_prof,
+                  "profile_10_ticks": eager_prof_ops},
+        "digests_equal": True, "launches": launches, "hp_total": int(hp.sum()),
     })
-    free(w)
-    return launches
+    return w, s0, launches
+
+
+def phase_binning(w, s0):
+    """(b): NF_BINNING=count against sort at 1M, under engines 0, 1 and 2:
+    30 graph ticks from the same state land on one digest; each knob
+    setting's tick time (mean, and median of 10 single ticks)."""
+    k = w.kernel
+    out = {}
+    for engine in (1, 0, 2):
+        w.combat.use_pallas = engine
+        for mode in ("sort", "count"):
+            os.environ["NF_BINNING"] = mode
+            k.run_device(1, reconcile=False)  # (re)captures under these knobs
+            restore_inplace(k, s0)
+            r = timed_run(k, 30, graph=True)
+            r["median_tick_ms"] = statistics.median(tick_times(k, 10, graph=True))
+            out[f"engine{engine}_{mode}"] = r
+    os.environ.pop("NF_BINNING")
+    w.combat.use_pallas = None
+    check(len({r["digest"] for r in out.values()}) == 1,
+          "every engine under count and sort binning lands on one digest after 30 ticks")
+    causes = k.costbook.entry("kernel.run").causes
+    check(causes.get("static:binning", 0) >= 1, "the binning change re-captured the tick")
+    emit({"phase": "binning_count_vs_sort", "entities": N_MAIN, "ticks": 30,
+          "digests_equal": True, "runs": out, "recapture_causes": causes})
+
+
+def lanes_equal(a, b) -> bool:
+    """Two TickOutputs' fired, diff, died and event masks are equal."""
+    la, sa, _ = tree.flatten((a.fired, a.diff, a.died, [(e.mask, e.params) for e in a.events]))
+    lb, sb, _ = tree.flatten((b.fired, b.diff, b.died, [(e.mask, e.params) for e in b.events]))
+    return sa == sb and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_train(w):
+    """(d): train(K=8) against tick(): per-tick counters and digests equal
+    over 16 observed ticks at 1M, from the same state.  The world is first
+    ticked 20 observed frames, so the overflow auto-resize has done its
+    work: a resize lands on the next tick in tick() but only after the
+    train in train(), and the two would part from there."""
+    k = w.kernel
+    k.enable_digest()
+    boost0 = w.combat._bucket_boost
+    w.run(20)
+    boost = w.combat._bucket_boost
+    s1 = snapshot(k.state)
+    k.state = fresh(s1)
+    t0 = time.perf_counter()
+    tick_outs = [k.tick() for _ in range(16)]
+    tick_s = time.perf_counter() - t0
+    ticks = [o.counters for o in tick_outs]
+    k.state = fresh(s1)
+    torch.cuda.reset_peak_memory_stats()
+    k.configure_train(8)
+    t0 = time.perf_counter()
+    first = k.train(8)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = k.train(8)
+    train_s = time.perf_counter() - t0
+    trained = [o.counters for o in first + second]
+    check(w.combat._bucket_boost == boost, "no overflow resize inside the compared window")
+    check(trained == ticks, "train(K=8) counters and digests equal tick()'s over 16 ticks")
+    check(all(lanes_equal(a, b) for a, b in zip(first + second, tick_outs)),
+          "both trains' fired, diff, died and event masks equal tick()'s, read after both ran")
+    emit({"phase": "train_vs_tick", "entities": N_MAIN, "k": 8, "ticks": 16,
+          "equal": True, "last_digest": trained[-1]["state_digest"] & 0xFFFFFFFF,
+          "bucket_boost": [boost0, boost],
+          "observed_tick_ms": tick_s / 16 * 1e3, "train_tick_ms": train_s / 8 * 1e3,
+          "first_two_trains_s": capture_s, "dispatches": k.train_dispatches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "capture": k.costbook.entry("kernel.train").last})
 
 
 def digest_stream(n, ticks, engine, device):
@@ -394,35 +543,124 @@ def digest_stream(n, ticks, engine, device):
         counters.append({k: v for k, v in c.items() if k != "aoi_interest_pairs"})
     secs = time.perf_counter() - t0
     launches = {name: kk.launches for name, kk in sck.KERNELS.items()}
-    free(w)
+    del w
+    free()
     return stream, counters, launches, secs
 
 
-def phase_engines():
-    runs = {e: digest_stream(N_MAIN, 30, e, "cuda") for e in (0, 1, 2)}
-    s0, c0 = runs[0][0], runs[0][1]
+def phase_engines(w, s0):
+    """Phase 4: 30 observed ticks at 1M under engines 0, 1 and 2 from the
+    same state give identical digest streams and counter banks."""
+    k = w.kernel
+    runs = {}
+    for e in (0, 1, 2):
+        w.combat.use_pallas = e
+        k.state = fresh(s0)
+        sck.reset_launch_counts()
+        stream, counters = [], []
+        t0 = time.perf_counter()
+        for _ in range(30):
+            c = w.tick().counters
+            stream.append(c["state_digest"] & 0xFFFFFFFF)
+            counters.append({kk: v for kk, v in c.items() if kk != "aoi_interest_pairs"})
+        runs[e] = (stream, counters, {n: kk.launches for n, kk in sck.KERNELS.items()},
+                   time.perf_counter() - t0)
+    w.combat.use_pallas = None
+    s0_, c0 = runs[0][0], runs[0][1]
     for e in (1, 2):
-        check(runs[e][0] == s0, f"engine {e} digest stream equals engine 0's")
+        check(runs[e][0] == s0_, f"engine {e} digest stream equals engine 0's")
         check(runs[e][1] == c0, f"engine {e} counter bank equals engine 0's")
     check(runs[1][2]["combat_fold"] == 30, "engine 1 ran kernel 1 every tick")
     check(runs[2][2]["fused_neighborhood"] == 30, "engine 2 ran kernel 2 every tick")
     check(runs[0][2]["combat_fold"] == runs[0][2]["fused_neighborhood"] == 0,
           "engine 0 launched no kernel")
     emit({"phase": "engine_digest_parity", "entities": N_MAIN, "ticks": 30,
-          "digests_equal": True, "last_digest": s0[-1],
+          "digests_equal": True, "last_digest": s0_[-1],
           "launches": {e: runs[e][2] for e in runs},
           "observed_tick_s": {e: runs[e][3] / 30 for e in runs}})
-    return runs[2][2]
+
+
+def phase_verlet():
+    """(c): NF_VERLET_SKIN=2.0 at 1M under engines 1 and 2: graph and eager
+    runs of 30 ticks from the same state land on equal digests with equal
+    rebuild and reuse counts; the graph tick under count binning too.
+    Returns kernel 2's launches (graph run)."""
+    os.environ["NF_VERLET_SKIN"] = "2.0"
+    w = gw.build_benchmark_world(N_MAIN, seed=SEED, device="cuda")
+    os.environ.pop("NF_VERLET_SKIN")
+    k = w.kernel
+    check(w.combat.verlet_skin == 2.0 and w.combat.cell_size == 6.0, "the skin widens the cells")
+    k.run_device(0, reconcile=False)  # primes the Verlet cache entry
+    s0 = snapshot(k.state)
+    out, fused_launches = {}, 0
+    for e in (1, 2):
+        w.combat.use_pallas = e
+        name = "combat_fold" if e == 1 else "fused_neighborhood"
+        arms = {}
+        for arm in ("eager", "graph", "graph_count"):
+            graph = arm != "eager"
+            if arm == "graph_count":
+                os.environ["NF_BINNING"] = "count"
+            k.state = fresh(s0)
+            if graph:
+                k.run_device(1, reconcile=False)  # captures under these knobs
+                restore_inplace(k, s0)
+                sck.reset_launch_counts()
+            r = timed_run(k, 30, graph=graph)
+            if arm == "graph" and e == 2:
+                fused_launches = sck.KERNELS["fused_neighborhood"].launches
+            os.environ.pop("NF_BINNING", None)
+            cache = k.state.aux[w.combat.aux_key]
+            r.update(rebuilds=int(cache.rebuilds), reuses=int(cache.reuses))
+            if arm == "graph":
+                prof = profile_ticks(k, 10, host_ops=False, graph=True)
+                r["profile_10_ticks"] = prof
+                check(prof["kernel_launches"][name] == 10,
+                      f"engine {e}: the profiler sees one {name} kernel per replayed tick")
+            arms[arm] = r
+        for arm in ("graph", "graph_count"):
+            check(arms[arm]["digest"] == arms["eager"]["digest"],
+                  f"engine {e}: {arm} and eager digests equal (skin 2.0)")
+            check((arms[arm]["rebuilds"], arms[arm]["reuses"])
+                  == (arms["eager"]["rebuilds"], arms["eager"]["reuses"]),
+                  f"engine {e}: {arm} and eager rebuild/reuse counts equal")
+        out[e] = arms
+    check(fused_launches == 30, "kernel 2 ran once per replayed tick")
+    emit({"phase": "verlet_skin_2", "entities": N_MAIN, "ticks": 30, "equal": True,
+          "engines": out})
+    return fused_launches
 
 
 def phase_cpu_parity():
-    gpu = digest_stream(4096, 60, None, "cuda")
-    cpu = digest_stream(4096, 60, None, "cpu")
-    check(gpu[0] == cpu[0], "cuda and cpu digest streams equal at 4096")
-    check(gpu[1] == cpu[1], "cuda and cpu counter banks equal at 4096")
-    check(gpu[2]["combat_fold"] == 60, "the cuda run went through kernel 1")
+    """Phase 5: 60 observed ticks at 4096 on the card and on the CPU give
+    equal digest streams and counter banks, without a skin and with
+    NF_VERLET_SKIN=2.0 (the Verlet refresh the card runs)."""
+    last = {}
+    for skin in ("", "2.0"):
+        os.environ["NF_VERLET_SKIN"] = skin
+        gpu = digest_stream(4096, 60, None, "cuda")
+        cpu = digest_stream(4096, 60, None, "cpu")
+        check(gpu[0] == cpu[0], f"cuda and cpu digest streams equal at 4096 (skin {skin!r})")
+        check(gpu[1] == cpu[1], f"cuda and cpu counter banks equal at 4096 (skin {skin!r})")
+        check(gpu[2]["combat_fold"] == 60, "the cuda run went through kernel 1")
+        last[skin or "0"] = gpu[0][-1]
+    os.environ.pop("NF_VERLET_SKIN")
     emit({"phase": "cuda_cpu_parity", "entities": 4096, "ticks": 60,
-          "digests_equal": True, "last_digest": gpu[0][-1]})
+          "digests_equal": True, "last_digest": last})
+
+
+def phase_bench():
+    """(e): the bench entry at 1M, as a user runs it (a subprocess)."""
+    cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--entities", str(N_MAIN),
+           "--ticks", "90", "--lat-k", "8", "--lat-budget-s", "2"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"the bench entry exits 0 ({proc.stderr[-2000:]})")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = line["detail"]
+    check(d["graph"] is True and d["entities"] == N_MAIN, "the bench ran the graph at 1M")
+    check(line["value"] > 0 and d["launches_per_tick"], "the bench measured its tick")
+    emit({"phase": "bench_entry", "line": line})
 
 
 def main() -> int:
@@ -433,20 +671,28 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     sck.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in (sck.BUILD_LOG or "").splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
 
     timing, max_err = phase_kernels()
-    main_launches = phase_main_path()
-    fused_launches = phase_engines()
+    w, s0, main_launches = phase_main_path()
+    phase_binning(w, s0)
+    phase_train(w)
+    phase_engines(w, s0)
+    del w, s0
+    free()
+    fused_launches = phase_verlet()
+    free()
     phase_cpu_parity()
+    phase_bench()
 
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
     launches = {"combat_fold": main_launches["combat_fold"],
-                "fused_neighborhood": fused_launches["fused_neighborhood"]}
+                "fused_neighborhood": fused_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
          "replaces": sck.KERNELS[name].replaces,

@@ -1,0 +1,258 @@
+"""The port's benchmark entry: the world tick of ``build_benchmark_world``.
+
+    python -m noahgameframe_tpu_torch.bench [--entities 1000000] [--ticks 90]
+        [--seed 42] [--train K] [--lat-k N] [--lat-budget-s S] [--no-combat]
+        [--device cuda]
+
+Counterpart of ``run_bench`` in the repository's ``bench.py``: builds the
+world, times a ``run_device`` window, takes single-step latency samples
+and fused-window latency samples (``lat_k`` ticks per sample), optionally
+times a K-tick train arm instead of the window, and prints ONE JSON line
+whose ``metric``/``unit``/``value``/``detail`` keys keep ``run_bench``'s
+names wherever the quantity is the same.  The knobs are the same
+environment variables: ``NF_PALLAS`` (fold engine), ``NF_BINNING``
+(``sort``/``count``) and ``NF_VERLET_SKIN``.  Percentiles are read from
+the world's metrics registry.
+
+It adds ``device_name`` and ``power_limit_w`` (from ``nvidia-smi``),
+``graph`` (whether ``run_device`` replayed a CUDA graph) and
+``launches_per_tick`` (device launches of one replay), and has no
+``vs_baseline``.  It never falls back to the CPU: without a card it
+fails unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .core.device import resolve_device
+from .game.world import GameWorld, build_benchmark_world
+from .ops.stencil import binning_mode, build_cell_table
+from .ops.verlet import skin_from_env
+
+
+def card_identity() -> Dict[str, object]:
+    """The card's name and power limit as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    name, limit = [f.strip() for f in out.strip().splitlines()[0].split(",")]
+    return {"device_name": name, "power_limit_w": float(limit.split()[0]),
+            "nvidia_smi": out.strip().splitlines()[0]}
+
+
+def _hist_pcts(hist) -> tuple:
+    """p50/p95/p99 in ms from a registry histogram."""
+    return tuple(round(hist.percentile(p) * 1e3, 3) for p in (50, 95, 99))
+
+
+def _drops(world: GameWorld, mask, bucket: int) -> int:
+    combat = world.combat
+    cs = world.kernel.state.classes[combat.class_name]
+    spec = world.kernel.store.spec(combat.class_name)
+    pos = cs.vec[:, spec.slot("Position").col, :2]
+    feats = torch.zeros((pos.shape[0], 0), dtype=torch.float32, device=pos.device)
+    return int(build_cell_table(pos, mask, feats, combat.cell_size, combat.width,
+                                bucket).dropped)
+
+
+def overflow_replays(world: GameWorld) -> tuple:
+    """(victim drops, worst attacker-residue drops) of the combat tables
+    rebuilt from the final state, published on the registry and read back
+    from it; -1 each without combat."""
+    combat = world.combat
+    if combat is None:
+        return -1, -1
+    k = world.kernel
+    cname = combat.class_name
+    cs = k.state.classes[cname]
+    cap = cs.alive.shape[0]
+    grid = _drops(world, cs.alive, combat.resolved_bucket(cap))
+    # the attacker table holds one firing residue per tick (staggered
+    # heartbeats keep their phase), so replay each residue
+    slot = k.schedule.slot(cname, "Attack")
+    interval = max(1, k.schedule.ticks_of(combat.attack_period_s))
+    armed = cs.timers.active[:, slot] & cs.alive
+    residue = cs.timers.next_fire[:, slot] % interval
+    att = max(_drops(world, armed & (residue == p), combat.resolved_att_bucket(cap))
+              for p in range(interval))
+    reg = world.telemetry.registry
+    g = reg.gauge("nf_bench_overflow_replay",
+                  "offline cell-table overflow replay (max drops per tick)", ("side",))
+    g.set(grid, side="victim")
+    g.set(att, side="attacker")
+    return (int(reg.value("nf_bench_overflow_replay", side="victim")),
+            int(reg.value("nf_bench_overflow_replay", side="attacker")))
+
+
+def costbook_detail(book, device) -> dict:
+    hbm = book.hbm_sample(device if device.type == "cuda" else None)
+    return {
+        "capture_ms": round(book.capture_s_total * 1e3, 1),
+        "compiles": book.total_compiles,
+        "recompiles": book.total_recompiles,
+        "recompile_causes": {n: dict(e.causes)
+                             for n, e in sorted(book.entries.items()) if e.causes},
+        "hbm_peak_bytes": int(hbm.get("peak_bytes", 0)),
+        "hbm_live_bytes": int(hbm.get("live_bytes", 0)),
+        "hbm_source": hbm.get("source"),
+        "entries": {n: {"compiles": e.compiles, "calls": e.calls, "replays": e.replays,
+                        "capture_ms_total": round(e.capture_s_total * 1e3, 1),
+                        "launches_per_replay": book.launches_per_replay(n),
+                        "pool_bytes": e.last.get("pool_bytes")}
+                    for n, e in sorted(book.entries.items())},
+    }
+
+
+def run_bench(args, device: torch.device) -> dict:
+    n = args.entities
+    sync: Callable[[], None] = (
+        (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None))
+    world = build_benchmark_world(n, combat=not args.no_combat, seed=args.seed, device=device)
+    k = world.kernel
+
+    train_k = int(args.train or 0)
+    if train_k > 1:
+        # the observed path, K ticks per dispatch; tick_ms is per tick
+        t_c0 = time.perf_counter()
+        k.configure_train(train_k)
+        k.train(train_k)
+        sync()
+        compile_s = time.perf_counter() - t_c0
+        d0 = k.train_dispatches
+        t0 = time.perf_counter()
+        k.train(args.ticks)
+        sync()
+        dt = time.perf_counter() - t0
+        train_detail = {"tick_train": train_k, "train_dispatches": k.train_dispatches - d0,
+                        "train_ticks_timed": args.ticks,
+                        "train_fetch_bytes": k.train_fetch_bytes}
+        k.run_device(1, reconcile=False)  # capture the run graph outside the windows
+        sync()
+    else:
+        train_detail = {}
+        t_c0 = time.perf_counter()
+        k.run_device(args.ticks)  # capture + warm-up
+        sync()
+        compile_s = time.perf_counter() - t_c0
+        t0 = time.perf_counter()
+        k.run_device(args.ticks)
+        sync()
+        dt = time.perf_counter() - t0
+
+    # single-step latency: one dispatch per sample, as a 30 Hz loop sees it
+    reg = world.telemetry.registry
+    lat_hist = reg.histogram("nf_bench_tick_seconds", "single-dispatch tick latency")
+    for _ in range(max(8, min(64, args.ticks))):
+        t1 = time.perf_counter()
+        k.run_device(1, reconcile=False)
+        sync()
+        lat_hist.observe(time.perf_counter() - t1)
+    p50, p95, p99 = _hist_pcts(lat_hist)
+
+    # fused windows: lat_k ticks per dispatch, so the per-dispatch cost is
+    # spread over lat_k ticks; window count adapts to a wall budget
+    tick_s_est = max(1e-5, dt / max(1, args.ticks))
+    lat_k = max(1, args.lat_k) if args.lat_k else max(4, min(256, int(round(1.6 / tick_s_est))))
+    n_windows = int(max(24, min(256, args.lat_budget_s / (lat_k * tick_s_est))))
+    k.run_device(lat_k, reconcile=False)
+    sync()
+    dev_hist = reg.histogram("nf_bench_tick_seconds_device",
+                             "fused-window per-tick latency (dispatch spread over lat_k)")
+    for _ in range(n_windows):
+        t1 = time.perf_counter()
+        k.run_device(lat_k, reconcile=False)
+        sync()
+        dev_hist.observe((time.perf_counter() - t1) / lat_k)
+    dp50, dp95, dp99 = _hist_pcts(dev_hist)
+
+    # Verlet cache effectiveness, read before the reconciling tick (an
+    # overflow there would invalidate, and drop the caches)
+    verlet = {}
+    for key, c in (k.state.aux or {}).items():
+        if key.startswith("verlet/"):
+            reb, reu = int(c.rebuilds), int(c.reuses)
+            verlet[key[len("verlet/"):]] = {
+                "rebuilds": reb, "reuses": reu,
+                "rebuilds_per_tick": round(reb / max(1, reb + reu), 4)}
+    k.tick()  # reconcile host free-lists; fetches the counter bank
+    grid_drop, att_drop = overflow_replays(world)
+    launches = k.costbook.launches_per_replay("kernel.run")
+    run_entry = k.costbook.entries.get("kernel.run")
+    rate = n * args.ticks / dt
+    detail = {
+        "entities": n,
+        "ticks": args.ticks,
+        "seed": args.seed,
+        "elapsed_s": round(dt, 4),
+        "compile_and_warmup_s": round(compile_s, 2),
+        "ticks_per_s": round(args.ticks / dt, 2),
+        "tick_ms": round(1000 * dt / args.ticks, 3),
+        "tick_ms_p50": p50,
+        "tick_ms_p95": p95,
+        "tick_ms_p99": p99,
+        "tick_ms_p50_device": dp50,
+        "tick_ms_p95_device": dp95,
+        "tick_ms_p99_device": dp99,
+        "lat_windows": n_windows,
+        "lat_k": lat_k,
+        "device": str(device),
+        "platform": "gpu" if device.type == "cuda" else "cpu",
+        "graph": bool(run_entry is not None and run_entry.last.get("graph")),
+        "launches_per_tick": launches,
+        "combat": not args.no_combat,
+        **train_detail,
+        "grid_overflow_max": grid_drop,
+        "att_overflow_max": att_drop,
+        "tick_counters": dict(k.last_counters),
+        "verlet_skin": skin_from_env(),
+        "binning": binning_mode(),
+        **({"pallas_engine": world.combat.resolved_engine()} if world.combat else {}),
+        **({"verlet": verlet} if verlet else {}),
+        "costbook": costbook_detail(k.costbook, device),
+    }
+    if device.type == "cuda":
+        detail.update(card_identity())
+        detail["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+    return {"metric": "entities_ticked_per_sec_per_chip", "value": round(rate, 1),
+            "unit": "entity-ticks/s", "detail": detail}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m noahgameframe_tpu_torch.bench")
+    ap.add_argument("--entities", type=int, default=1_000_000)
+    ap.add_argument("--ticks", type=int, default=90)
+    ap.add_argument("--seed", type=int, default=42,
+                    help="world seed; recorded in the line so a run can be repeated")
+    ap.add_argument("--train", type=int, default=0, metavar="K",
+                    help="time K-tick observed trains instead of run_device (0/1 = off)")
+    ap.add_argument("--lat-k", type=int, default=0,
+                    help="ticks per fused latency window; 0 = sized for ~1.6 s windows")
+    ap.add_argument("--lat-budget-s", type=float, default=20.0,
+                    help="wall budget of the windowed latency pass (24 to 256 windows)")
+    ap.add_argument("--no-combat", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the CPU runs only when asked for by name")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"bench: error: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(run_bench(args, device)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,7 @@ the two can be compared bank by bank and digest by digest::
       .classes: {class_name: ClassState}
       .tick:    int32 0-dim     (frame counter)
       .rng:     int64 [2]       (threefry key words, see core/prng.py)
-      .aux:     {}              (module-owned carried state; unused here)
+      .aux:     {}              (module-owned carried state: Verlet caches)
 
     ClassState                       (capacity C, from StoreConfig)
       .i32:   int32  [C, n_i32]      int / interned-string / object-handle
@@ -301,6 +301,12 @@ class EntityStore:
     def spec(self, class_name: str) -> ClassSpec:
         return self._hosts[class_name].spec
 
+    def capacity(self, class_name: str) -> int:
+        return self._hosts[class_name].capacity
+
+    def live_count(self, class_name: str) -> int:
+        return int(self._hosts[class_name].alloc_mask.sum())
+
     # -- value encoding -----------------------------------------------------
 
     def encode(self, t: DataType, v: Value):
@@ -414,9 +420,17 @@ class EntityStore:
         """Free rows whose ``alive`` the device cleared; returns their guids."""
         host = self._hosts[class_name]
         alive = state.classes[class_name].alive.cpu().numpy()
-        dead_rows = np.flatnonzero(host.alloc_mask & ~alive)
+        return self.release_rows(class_name, np.flatnonzero(host.alloc_mask & ~alive))
+
+    def release_rows(self, class_name: str, rows) -> List[Guid]:
+        """Free exactly ``rows`` (killed on the device) and return their
+        guids; rows already free are skipped.  A train frees each lane's
+        own died rows through this."""
+        host = self._hosts[class_name]
         dead: List[Guid] = []
-        for row in dead_rows.tolist():
+        for row in np.asarray(rows).tolist():
+            if not host.alloc_mask[row]:
+                continue
             g = host.row_guid[row]
             if g is None:
                 continue

@@ -2,8 +2,9 @@
 
 Counterpart of ``CombatModule`` in ``noahgameframe_tpu/game/combat.py``.
 Every alive entity is binned once into the cell tables (ops/stencil.py,
-one stable argsort); every entity then pulls incoming damage from the nine
-neighbor cells within the skill radius, applies ``max(sum_atk - def, 0)``
+under the ``NF_BINNING`` engine, or through the Verlet cache of
+ops/verlet.py when a skin is set); every entity then pulls incoming damage
+from the nine neighbor cells within the skill radius, applies ``max(sum_atk - def, 0)``
 (a hit always chips 1), and stamps the strongest in-range attacker as
 LastAttacker.  The death sweep emits one batched BE_KILLED event and arms
 the device-side respawn (HP restored after ``respawn_s``, keeping the row).
@@ -25,6 +26,11 @@ default is 0.  Unlike the JAX package, engine 2 has no size gate: it
 gathers from global memory, and at 1M rows the bank (about 24 MB) sits in
 the H100's 50 MB L2, so it runs at 1M where the JAX package falls back to
 engine 0 for lack of VMEM.  All engines give bit-identical state.
+
+``verlet_skin`` (else ``NF_VERLET_SKIN``; <= 0 is off) widens the cells to
+``max(cell_size, radius + skin)`` and gates the binning on displacement;
+the cache rides ``WorldState.aux`` as ``verlet/<class>``, and the tick
+counts ``grid_rebuilds``, ``grid_reuses`` and ``grid_cache_age``.
 """
 
 from __future__ import annotations
@@ -39,8 +45,16 @@ import torch
 
 from ..core.store import HANDLE_ROW_BITS, WorldState, set_column, with_class
 from ..kernel.module import Module
-from ..ops.stencil import auto_bucket, build_cell_slots_pair, build_cell_table_pair, pull_slots
+from ..ops.stencil import (
+    auto_bucket,
+    binning_mode,
+    build_cell_slots_pair,
+    build_cell_table_pair,
+    pull_slots,
+    slots_from_assignment,
+)
 from ..ops.stencil_cuda import combat_fold, combat_fold_plain, fused_neighborhood
+from ..ops.verlet import full_table, init_cache, refresh, skin_from_env, sub_slots, sub_table
 from .defines import GameEvent
 
 ATTACK_TIMER = "Attack"
@@ -62,12 +76,19 @@ class CombatModule(Module):
         attack_period_s: float = 1.0,
         order: int = 30,
         use_pallas: Optional[int] = None,
+        verlet_skin: Optional[float] = None,
     ):
         super().__init__()
         self.class_name = class_name
         self.extent = float(extent)
         self.radius = float(radius)
+        # None = the NF_VERLET_SKIN knob; a positive skin widens the cells
+        # so the 3x3 stencil covers the radius from positions up to skin/2
+        # stale
+        self.verlet_skin = float(verlet_skin if verlet_skin is not None else skin_from_env())
         self.cell_size = float(cell_size if cell_size is not None else max(radius, 1.0))
+        if self.verlet_skin > 0.0:
+            self.cell_size = max(self.cell_size, self.radius + self.verlet_skin)
         self.width = max(1, int(self.extent / self.cell_size))
         # None = size buckets from capacity/cell density
         self.bucket = None if bucket is None else int(bucket)
@@ -89,6 +110,24 @@ class CombatModule(Module):
 
     def init(self) -> None:
         self.kernel.schedule.register_timer(self.class_name, ATTACK_TIMER)
+        if self.verlet_skin > 0.0:
+            # a never-built cache rebuilds on the first tick; invalidate()
+            # (a bucket boost) drops it with the captured tick
+            k = self.kernel
+            k.register_aux(self.aux_key,
+                           lambda: init_cache(k.store.capacity(self.class_name), k.device))
+
+    @property
+    def aux_key(self) -> str:
+        return f"verlet/{self.class_name}"
+
+    def capture_key(self) -> dict:
+        if self.class_name not in self.kernel.store.class_index:
+            return {}
+        cap = self.kernel.store.capacity(self.class_name)
+        return {"engine": self.resolved_engine(), "binning": binning_mode(),
+                "verlet_skin": self.verlet_skin, "bucket": self.resolved_bucket(cap),
+                "att_bucket": self.resolved_att_bucket(cap)}
 
     def after_init(self) -> None:
         self.kernel.events.subscribe_batch(
@@ -96,7 +135,9 @@ class CombatModule(Module):
 
     def _on_overflow(self, cname: str, _mask, params) -> None:
         """Host side of the overflow signal: on a budget breach double the
-        bucket (up to ``max_bucket_boost``); the next tick uses it."""
+        bucket (up to ``max_bucket_boost``) and invalidate the kernel, which
+        drops the captured tick and the Verlet cache built for the old
+        bucket."""
         dv = int(params["dropped_victims"][0])
         da = int(params["dropped_attackers"][0])
         alive = int(self.kernel.store._hosts[cname].alloc_mask.sum())
@@ -104,6 +145,7 @@ class CombatModule(Module):
             return
         if self._bucket_boost < self.max_bucket_boost:
             self._bucket_boost *= 2
+            self.kernel.invalidate()
             logging.getLogger("nf.combat").warning(
                 "combat cell-table overflow: dropped %d/%d victims+attackers "
                 "(budget %.4f%%) — bucket boosted x%d",
@@ -183,23 +225,50 @@ class CombatModule(Module):
         group_f = cs.i32[:, spec.slot("GroupID").col].to(f32)
         eff_atk = torch.where(attacking, atk, 0).to(f32)
         nbr = None
-        if engine == 2:
-            # one key pass feeds both slot assignments, no payloads; one
-            # bank serves both sides (the attacker row is the gather index)
-            vic_bin, att_bin = build_cell_slots_pair(
-                pos, cs.alive, attacking, self.cell_size, self.width, bucket, att_bucket)
-            bank = torch.stack([pos[:, 0], pos[:, 1], camp_f, scene_f, group_f, eff_atk], -1)
-            inc, bestr, nbr = fused_neighborhood(bank, vic_bin, att_bin, self.radius)
-        else:
-            # TWO tables from one argsort: every alive entity is resident as
-            # a victim, only this tick's attackers ride the scanned side
+        # the split tables' features; the fused engine gathers from one
+        # bank instead (the attacker row is the gather index)
+        vic_feats = att_feats = None
+        if engine != 2:
             rows_f = torch.arange(n, dtype=f32, device=pos.device)
             vic_feats = torch.stack([pos[:, 0], pos[:, 1], camp_f, scene_f, group_f], -1)
             att_feats = torch.stack(
                 [pos[:, 0], pos[:, 1], eff_atk, camp_f, scene_f, group_f, rows_f], -1)
+        if self.verlet_skin > 0.0:
+            # displacement-gated binning (ops/verlet.py): the folds mask by
+            # the true radius on current positions, so results equal a
+            # rebuild every tick
+            cache, rebuilt = refresh(state.aux[self.aux_key], pos, cs.alive, self.cell_size,
+                                     self.width, bucket, self.verlet_skin)
+            n_cells = self.width * self.width
+            if engine == 2:
+                vic_bin = slots_from_assignment(cs.alive, cache.slot_of, n_cells,
+                                                self.cell_size, self.width, bucket)
+                att_bin = slots_from_assignment(
+                    attacking, sub_slots(cache, attacking, n_cells, att_bucket), n_cells,
+                    self.cell_size, self.width, att_bucket)
+            else:
+                vic_bin = full_table(cache, vic_feats, cs.alive, n_cells, self.cell_size,
+                                     self.width, bucket)
+                att_bin = sub_table(cache, attacking, att_feats, n_cells, self.cell_size,
+                                    self.width, att_bucket)
+            ctx.count("grid_rebuilds", rebuilt)
+            ctx.count("grid_reuses", 1 - rebuilt)
+            ctx.count("grid_cache_age", cache.age)
+            state = state.replace(aux={**state.aux, self.aux_key: cache})
+        elif engine == 2:
+            # one key pass feeds both slot assignments, no payloads
+            vic_bin, att_bin = build_cell_slots_pair(
+                pos, cs.alive, attacking, self.cell_size, self.width, bucket, att_bucket)
+        else:
+            # TWO tables from one key pass: every alive entity is resident
+            # as a victim, only this tick's attackers ride the scanned side
             vic_bin, att_bin = build_cell_table_pair(
                 pos, cs.alive, vic_feats, attacking, att_feats,
                 self.cell_size, self.width, bucket, att_bucket)
+        if engine == 2:
+            bank = torch.stack([pos[:, 0], pos[:, 1], camp_f, scene_f, group_f, eff_atk], -1)
+            inc, bestr, nbr = fused_neighborhood(bank, vic_bin, att_bin, self.radius)
+        else:
             fold = combat_fold if engine == 1 else combat_fold_plain
             inc, bestr = fold(vic_bin, att_bin, self.radius)
         mask0 = torch.zeros((n,), dtype=torch.bool, device=pos.device)

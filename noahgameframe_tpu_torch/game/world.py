@@ -2,9 +2,10 @@
 
 Counterpart of ``noahgameframe_tpu/game/world.py`` with
 ``middleware=False``: kernel, scene, property config, stat recompute,
-level, movement, combat and regen.  There is no plugin manager here:
-:meth:`GameWorld.start` drives the module lifecycle itself, in the order
-the JAX package's plugin manager does (which fixes the timer slots).
+level, movement, combat, regen and telemetry.  There is no plugin
+manager here: :meth:`GameWorld.start` drives the module lifecycle
+itself, in the order the JAX package's plugin manager does (which fixes
+the timer slots), and :meth:`GameWorld.run` is its frame loop.
 
 ``build_benchmark_world`` is BASELINE config 4 (AoE damage plus stat
 recompute) at ~0.4 NPCs per world unit², the world ``bench.py`` times.
@@ -22,6 +23,7 @@ from ..core.store import StoreConfig
 from ..kernel.kernel import Kernel
 from ..kernel.module import LIFECYCLE, Module
 from ..kernel.scene import SceneModule
+from ..telemetry.module import TelemetryModule
 from .combat import CombatModule
 from .defines import COMM_PROPERTY_RECORD, PropertyGroup
 from .level import LevelModule
@@ -47,6 +49,9 @@ class WorldConfig:
     combat: bool = True
     movement: bool = True
     regen: bool = True
+    # Verlet skin of the combat grid (ops/verlet.py); None defers to the
+    # NF_VERLET_SKIN knob, <= 0 disables (rebuild every tick)
+    verlet_skin: Optional[float] = None
     # private is included so owner-only state reaches its own client
     diff_flags: tuple = ("public", "private", "upload")
 
@@ -88,14 +93,18 @@ class GameWorld:
                 bucket=cfg.aoi_bucket,
                 respawn_s=cfg.respawn_s,
                 attack_period_s=cfg.attack_period_s,
+                verlet_skin=cfg.verlet_skin,
             )
         self.regen = RegenModule(period_s=cfg.regen_period_s) if cfg.regen else None
+        # registry, tracer, census and the kernel's cost book; attached to
+        # the kernel in after_init
+        self.telemetry = TelemetryModule()
         # the JAX package's plugin-manager order (kernel, config plugin,
         # then the game-server plugin's modules)
         self.modules: List[Module] = [
             m for m in (self.kernel, self.property_config, self.scene,
                         self.properties, self.level, self.movement,
-                        self.combat, self.regen)
+                        self.combat, self.regen, self.telemetry)
             if m is not None
         ]
         for m in self.modules:
@@ -164,6 +173,11 @@ class GameWorld:
                 m.execute()
         self.kernel.execute()
         return self.kernel.tick()
+
+    def run(self, frames: int) -> None:
+        """``frames`` observed frames, each one :meth:`tick`."""
+        for _ in range(int(frames)):
+            self.tick()
 
 
 def build_benchmark_world(n_npcs: int, extent: Optional[float] = None,

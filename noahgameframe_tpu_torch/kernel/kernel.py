@@ -2,7 +2,7 @@
 
 Counterpart of ``noahgameframe_tpu/kernel/kernel.py``.  The JAX package
 traces ``Kernel._trace_step`` into one compiled function; here the same
-step runs eagerly on the world's device (:meth:`Kernel._step`):
+step runs on the world's device (:meth:`Kernel._step`):
 
     schedule advance -> registered module phases in order ->
     flag-masked diff extraction + death masks -> packed summary vector
@@ -10,20 +10,39 @@ step runs eagerly on the world's device (:meth:`Kernel._step`):
 The per-tick counter bank (``ctx.count`` values plus the kernel's own
 counters, packed in sorted name order) and the optional ``state_digest``
 ride one summary tensor, the only thing :meth:`Kernel.tick` copies to the
-host.  :meth:`Kernel.run_device` loops the step with no host sync at all.
+host.  Each phase runs under ``torch.profiler.record_function``
+(``nf.schedule``, ``nf.phase.<name>``, ``nf.diff``), so a profiler trace
+names the stage of every device launch.
+
+The entry points dispatch through the kernel's :class:`CostBook`:
+
+- :meth:`tick` (``kernel.step``) runs one observed step eagerly;
+- :meth:`run_device` (``kernel.run``) advances n steps with no host sync.
+  On a CUDA device the step is captured once as a CUDA graph and replayed
+  n times; the JAX package's ``lax.fori_loop`` dispatch becomes that
+  replay.  ``graph=False`` runs the eager loop instead;
+- :meth:`train` (``kernel.train``) runs K observed steps per dispatch
+  (one CUDA graph of K steps on a card), each tick's lanes stacked into
+  ``[K, ...]`` buffers and one ``[K, L]`` summary fetched per dispatch.
+
+Anything the step closes over on the host (a bucket, an engine, the
+digest, K) is part of each capture's key, and :meth:`invalidate` drops
+every captured graph and the registered aux entries, as the JAX package
+drops its compiled tick.
 
 Deaths found on the device free their rows on the host and fire
 ``ObjectEvent.DESTROY`` to class-event subscribers.  Not ported here: host
 object creation and destruction (``create_object``/``destroy_object``),
-the plugin manager (``GameWorld.start`` drives the module lifecycle), the
-cost book, K-tick trains, journaling, record-diff and property
-subscribers.
+the plugin manager (``GameWorld.start`` drives the module lifecycle),
+journaling, record-diff and property subscribers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from fnmatch import fnmatch
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +53,10 @@ from ..core.element import ElementStore
 from ..core.prng import MASK32, fold_in
 from ..core.schema import ClassRegistry
 from ..core.store import EntityStore, StoreConfig, WorldState
+from ..core.tree import flatten, unflatten
+from ..ops.stencil_cuda import KERNELS
+from ..telemetry.costbook import CostBook
+from ..telemetry.tracing import device_annotation as _annotate
 from .events import DeviceEvent, EventModule
 from .module import Module, Phase
 from .schedule import ScheduleModule
@@ -54,6 +77,44 @@ class ObjectEvent(enum.IntEnum):
 
 
 ClassEventFn = Callable[[Guid, str, "ObjectEvent"], None]
+
+# Every per-tick output lane of Kernel._step that host code consumes must
+# match one of these patterns: a K-tick train stacks exactly these lanes
+# into [K, ...] buffers, and a lane missing from the stack would lose its
+# per-tick history inside a train.  _assert_train_lanes enforces it.
+TRAIN_LANE_SPEC = (
+    "fired",
+    "diff",
+    "diff_count",
+    "died",
+    "died_count",
+    "events",
+    "summary",
+)
+
+# Lanes of the JAX package's tick that the port's step does not produce,
+# each with its reason.  Should the step ever produce one, the lane check
+# fails until the lane moves to TRAIN_LANE_SPEC.
+TRAIN_EXCLUDED = {
+    "rec_diff": "record-diff subscribers are not ported: the step computes no record diffs",
+    "rec_diff_count": "record-diff subscribers are not ported: no per-class record-diff counts",
+}
+
+
+def _assert_train_lanes(out: Dict[str, object]) -> None:
+    """Coverage check of the train's stacked lane set, both directions: a
+    lane no pattern names (a new per-tick output without a train fate), a
+    pattern no lane matches (stale), or an excluded lane that is produced."""
+    unlisted = [k for k in out if not any(fnmatch(k, p) for p in TRAIN_LANE_SPEC)]
+    stale = [p for p in TRAIN_LANE_SPEC if not any(fnmatch(k, p) for k in out)]
+    produced = [p for p in TRAIN_EXCLUDED if any(fnmatch(k, p) for k in out)]
+    if unlisted or stale or produced:
+        raise AssertionError(
+            "TRAIN_LANE_SPEC drift: "
+            f"unlisted out lanes {unlisted}, stale patterns {stale}, "
+            f"excluded lanes produced {produced}"
+        )
+
 
 # multiplier for the rolling state-digest fold (odd, so it is invertible
 # mod 2^32 and single-bit flips diffuse instead of cancelling)
@@ -155,7 +216,8 @@ class TickCtx:
 
 class TickOutputs:
     """What one observed tick returns: fired masks, flag-masked diff masks,
-    death masks, the emitted events and the decoded counter bank."""
+    death masks, the emitted events and the decoded counter bank.  A
+    train's frames are views of that dispatch's own ``[K, ...]`` lanes."""
 
     def __init__(self, fired, diff, diff_count, died, died_count, events,
                  counters=None):
@@ -194,12 +256,32 @@ class Kernel(Module):
         self.store: Optional[EntityStore] = None
         self.state: Optional[WorldState] = None
         self._composed: List[Phase] = []
+        self._modules: List[Module] = []
         self._diff_cols: Dict[str, Dict[str, torch.Tensor]] = {}
         self._class_event_subs: List[ClassEventFn] = []
+        # the capture and launch ledger of every entry point (tick, run,
+        # train); TelemetryModule.attach_kernel adopts it
+        self.costbook = CostBook()
+        self._step_fn = None
+        self._run_fn = None
+        self._train_fn = None
+        self._train_k = 0
+        self.train_dispatches = 0
+        self.train_ticks = 0
+        self.train_fetch_bytes = 0
+        # module-registered carried tick state (WorldState.aux): name ->
+        # zero-arg init fn, primed right before a dispatch and dropped by
+        # invalidate() (aux layouts bake geometry such as buckets)
+        self._aux_init: Dict[str, Callable[[], Any]] = {}
+        # host metadata of the last step: counter and event names
         self._counter_names: Tuple[str, ...] = ()
+        self._event_meta: List[Tuple[int, str, Tuple[str, ...]]] = []
         self.tick_count = 0
         self.last_counters: Dict[str, int] = {}
+        self.counter_totals: Dict[str, int] = {}  # cumulative over observed ticks
         self.digest_enabled = False
+        # optional telemetry.SpanTracer for host spans; None = no cost
+        self.tracer = None
 
     # -- build --------------------------------------------------------------
 
@@ -214,9 +296,8 @@ class Kernel(Module):
             device=self.device,
         )
         self.state = self.store.init_state(self._seed)
-        self._composed = sorted(
-            (p for m in modules for p in m.phases), key=lambda p: p.order
-        )
+        self._modules = list(modules)
+        self.set_phases([p for m in modules for p in m.phases])
         # the columns each bank's diff extraction keeps (diff_flags union)
         for cname in self.store.class_order:
             spec = self.store.spec(cname)
@@ -229,29 +310,94 @@ class Kernel(Module):
                     cols[bank.value] = torch.from_numpy(fm).to(self.device)
             self._diff_cols[cname] = cols
 
+    def set_phases(self, phases: Sequence[Phase]) -> None:
+        """Replace the composed phase chain (drops every captured graph)."""
+        self._composed = sorted(phases, key=lambda p: p.order)
+        self._step_fn = self._run_fn = self._train_fn = None
+        self.costbook.generation_bump("set_phases")
+
+    # -- captures, invalidation and carried aux state -------------------------
+
+    def _statics(self) -> Dict[str, Any]:
+        """The host values the step closes over: the capture key."""
+        key: Dict[str, Any] = {"digest": self.digest_enabled}
+        for m in self._modules:
+            key.update(m.capture_key())
+        return key
+
+    def _train_statics(self) -> Dict[str, Any]:
+        return {**self._statics(), "train_k": self._train_k}
+
+    def compile(self) -> None:
+        if self._step_fn is None:
+            self._step_fn = self.costbook.wrap(
+                "kernel.step", lambda st: self._step(st, observe=True),
+                stage="tick", statics=self._statics)
+
+    def invalidate(self) -> None:
+        """Drop every captured graph, and the registered aux entries, whose
+        layouts bake the same geometry (a stale Verlet slot assignment must
+        not outlive a bucket change).  Call after changing anything the
+        phases close over; the next dispatch captures anew."""
+        self._step_fn = None
+        self._run_fn = None
+        self._train_fn = None
+        self.costbook.generation_bump("invalidate")
+        if self._aux_init and self.state is not None and self.state.aux:
+            kept = {k: v for k, v in self.state.aux.items() if k not in self._aux_init}
+            if len(kept) != len(self.state.aux):
+                self.state = self.state.replace(aux=kept)
+
     def enable_digest(self) -> None:
-        """Turn on the per-tick ``state_digest`` counter."""
-        self.digest_enabled = True
+        """Turn on the per-tick ``state_digest`` counter (drops the
+        captured tick, whose counter bank grows a slot)."""
+        if not self.digest_enabled:
+            self.digest_enabled = True
+            self.invalidate()
+
+    def register_aux(self, name: str, init_fn: Callable[[], Any]) -> None:
+        """Register module-owned carried tick state (``WorldState.aux``):
+        ``init_fn()`` builds it before the next dispatch and again after
+        every :meth:`invalidate`."""
+        self._aux_init[name] = init_fn
+
+    def _ensure_aux(self) -> None:
+        """Prime registered aux entries the state lacks, before a dispatch."""
+        missing = [k for k in self._aux_init if k not in self.state.aux]
+        if missing:
+            aux = dict(self.state.aux)
+            for k in missing:
+                aux[k] = self._aux_init[k]()
+            self.state = self.state.replace(aux=aux)
+
+    def _span(self, name: str):
+        """Host-side tracer span if a tracer is attached, else free."""
+        if self.tracer is not None:
+            return self.tracer.span(name)
+        return contextlib.nullcontext()
 
     # -- the tick ------------------------------------------------------------
 
     def _step(self, state: WorldState, observe: bool = True):
-        """One frame: ``(state', outputs)``.  With ``observe=False`` (the
-        run_device loop) the host-facing outputs are not computed, as XLA
-        drops them from the JAX package's fused run loop."""
+        """One frame: ``(state', raw)``.  ``raw`` is the dict of per-tick
+        lanes (TRAIN_LANE_SPEC) of an observed step; with ``observe=False``
+        (run_device) it is None, as XLA drops those outputs from the JAX
+        package's fused run loop."""
         old = state
         fired: Dict[str, torch.Tensor] = {}
         new_classes = {}
-        for cname in self.store.class_order:
-            cs, f = self.schedule.advance_class(state.classes[cname], state.tick)
-            new_classes[cname] = cs
-            fired[cname] = f
-        state = state.replace(classes=new_classes)
+        with _annotate("nf.schedule"):
+            for cname in self.store.class_order:
+                cs, f = self.schedule.advance_class(state.classes[cname], state.tick)
+                new_classes[cname] = cs
+                fired[cname] = f
+            state = state.replace(classes=new_classes)
 
         rng = fold_in(state.rng, state.tick)
         ctx = TickCtx(self, state.tick, rng, fired)
         for phase in self._composed:
-            state = phase.fn(state, ctx)
+            with _annotate(f"nf.phase.{phase.name}"):
+                state = phase.fn(state, ctx)
         state = state.replace(tick=state.tick + 1)
         if not observe:
             return state, None
@@ -261,25 +407,27 @@ class Kernel(Module):
         diff_count: Dict[str, torch.Tensor] = {}
         died: Dict[str, torch.Tensor] = {}
         died_count: Dict[str, torch.Tensor] = {}
-        for cname in self.store.class_order:
-            oc, nc = old.classes[cname], state.classes[cname]
-            masks = {}
-            total = zero
-            for bank, cols in self._diff_cols[cname].items():
-                ob, nb = getattr(oc, bank), getattr(nc, bank)
-                ne = ob != nb
-                if bank == "vec":
-                    ne = ne.any(dim=-1)
-                m = ne & nc.alive[:, None] & cols[None, :]
-                masks[bank] = m
-                total = total + torch.sum(m, dtype=torch.int32)
-            if masks:
-                diff[cname] = masks
-                diff_count[cname] = total
-            d = oc.alive & ~nc.alive
-            died[cname] = d
-            died_count[cname] = torch.sum(d, dtype=torch.int32)
+        with _annotate("nf.diff"):
+            for cname in self.store.class_order:
+                oc, nc = old.classes[cname], state.classes[cname]
+                masks = {}
+                total = zero
+                for bank, cols in self._diff_cols[cname].items():
+                    ob, nb = getattr(oc, bank), getattr(nc, bank)
+                    ne = ob != nb
+                    if bank == "vec":
+                        ne = ne.any(dim=-1)
+                    m = ne & nc.alive[:, None] & cols[None, :]
+                    masks[bank] = m
+                    total = total + torch.sum(m, dtype=torch.int32)
+                if masks:
+                    diff[cname] = masks
+                    diff_count[cname] = total
+                d = oc.alive & ~nc.alive
+                died[cname] = d
+                died_count[cname] = torch.sum(d, dtype=torch.int32)
 
+        self._event_meta = [(e.event_id, e.class_name, tuple(e.params)) for e in ctx.emitted]
         ev_counts = [torch.sum(e.mask, dtype=torch.int32) for e in ctx.emitted]
         counters = dict(ctx._counters)
         counters["deaths"] = sum(died_count.values(), zero)
@@ -300,31 +448,94 @@ class Kernel(Module):
             + ev_counts
             + [counters[k].to(torch.int32) for k in self._counter_names]
         )
-        out = TickOutputs(fired, diff, diff_count, died, died_count, ctx.emitted)
-        return state, (out, summary)
+        raw = {
+            "fired": fired,
+            "diff": diff,
+            "diff_count": diff_count,
+            "died": died,
+            "died_count": died_count,
+            "events": [(e.mask, e.params) for e in ctx.emitted],
+            "summary": summary,
+        }
+        return state, raw
 
     def tick(self) -> TickOutputs:
         """Advance the world one frame, fetch the summary, and fan out
         host-visible effects (events, deaths, counters)."""
-        self.state, (out, summary) = self._step(self.state, observe=True)
+        return self.tick_finish(self.tick_begin())
+
+    def tick_begin(self) -> Dict[str, object]:
+        """Run one observed step and return its raw lanes without fetching
+        anything (the device may still be running it)."""
+        self.compile()
+        self._ensure_aux()
+        with self._span("kernel.dispatch"):
+            self.state, raw = self._step_fn(self.state)
         self.tick_count += 1
-        summary = summary.cpu().numpy()
-        names = self._counter_names
-        tail = summary[len(summary) - len(names):]
-        out.counters = {k: int(v) for k, v in zip(names, tail)}
+        return raw
+
+    def _outputs(self, lane: Dict[str, object]) -> TickOutputs:
+        events = [DeviceEvent(eid, cname, mask, dict(params))
+                  for (eid, cname, _names), (mask, params) in zip(self._event_meta, lane["events"])]
+        return TickOutputs(lane["fired"], lane["diff"], lane["diff_count"], lane["died"],
+                           lane["died_count"], events)
+
+    def _observe_counters(self, out: TickOutputs, summary: np.ndarray) -> None:
+        out.counters = {k: int(v) for k, v in self.decode_counters(summary).items()}
         self.last_counters = dict(out.counters)
-        self._post_tick(out, summary)
+        for k, v in out.counters.items():
+            if k in ("state_digest", "tick"):
+                continue  # a hash and a stamp: summing either is noise
+            self.counter_totals[k] = self.counter_totals.get(k, 0) + v
+
+    def tick_finish(self, raw: Dict[str, object]) -> TickOutputs:
+        """Fetch a step's summary and fan out its host-visible effects."""
+        out = self._outputs(raw)
+        with self._span("kernel.summary_fetch"):
+            summary = raw["summary"].cpu().numpy()
+        self._observe_counters(out, summary)
+        with self._span("kernel.post_tick"):
+            self._post_tick(out, summary)
         return out
 
-    def run_device(self, n: int, reconcile: bool = True) -> int:
+    def decode_counters(self, summary) -> Dict[str, np.ndarray]:
+        """The named counter bank off a summary's tail (the last
+        ``len(self._counter_names)`` lanes); works on a ``[K, L]`` stack."""
+        names = self._counter_names
+        if not names:
+            return {}
+        arr = np.asarray(summary)
+        tail = arr[..., arr.shape[-1] - len(names):]
+        return {k: tail[..., i] for i, k in enumerate(names)}
+
+    def run_device(self, n: int, reconcile: bool = True, graph: Optional[bool] = None) -> int:
         """Advance n frames with no host sync: per-tick host observation is
         skipped, and deaths are reconciled once at the end (unless
-        ``reconcile=False``).  Returns the number of rows freed."""
-        state = self.state
-        for _ in range(int(n)):
-            state, _ = self._step(state, observe=False)
-        self.state = state
-        self.tick_count += int(n)
+        ``reconcile=False``).  Returns the number of rows freed.
+
+        On a CUDA device (``graph`` None or True) the step is captured
+        once as a CUDA graph (``kernel.run``) and replayed n times; the
+        state's banks are then updated in place.  ``graph=False`` runs the
+        eager loop of functional steps; on the CPU that is the only way."""
+        n = int(n)
+        use_graph = self.device.type == "cuda" if graph is None else bool(graph)
+        if use_graph and self.device.type != "cuda":
+            raise ValueError("run_device(graph=True) needs a CUDA device")
+        self._ensure_aux()
+        if n > 0 and use_graph:
+            if self._run_fn is None:
+                self._run_fn = self.costbook.wrap(
+                    "kernel.run", lambda st: (self._step(st, observe=False)[0], None),
+                    stage="tick", statics=self._statics, graph=True,
+                    launch_counters=KERNELS)
+            with self._span("kernel.dispatch"):
+                self.state, _ = self._run_fn(self.state, times=n)
+        else:
+            state = self.state
+            for _ in range(n):
+                state, _ = self._step(state, observe=False)
+            self.state = state
+        self.tick_count += n
         if not reconcile:
             return 0
         freed = 0
@@ -334,7 +545,92 @@ class Kernel(Module):
                 freed += 1
         return freed
 
-    def _post_tick(self, out: TickOutputs, summary: np.ndarray) -> None:
+    # -- K-tick trains ---------------------------------------------------------
+
+    def configure_train(self, k: int) -> None:
+        """Pin the train length.  Changing K drops only the train's capture,
+        announced as a sanctioned re-capture."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"train length must be >= 1, got {k}")
+        if k == self._train_k:
+            return
+        self._train_k = k
+        if self._train_fn is not None:
+            self._train_fn = None
+            self.costbook.generation_bump(f"train_k:{k}")
+
+    def _trace_train(self, state: WorldState):
+        """K observed steps; each tick's lanes are copied into ``[K, ...]``
+        buffers allocated at the first tick."""
+        k = self._train_k
+        bufs = spec = raw = None
+        for i in range(k):
+            state, raw = self._step(state, observe=True)
+            leaves, lane_spec, _ = flatten(raw)
+            if bufs is None:
+                spec = lane_spec
+                bufs = [torch.empty((k, *x.shape), dtype=x.dtype, device=x.device)
+                        for x in leaves]
+            for b, x in zip(bufs, leaves):
+                b[i].copy_(x)
+        _assert_train_lanes(raw)
+        return state, unflatten(spec, bufs)
+
+    def compile_train(self) -> None:
+        if self._train_fn is None:
+            if self._train_k < 1:
+                raise RuntimeError("configure_train(k) before train()")
+            self._train_fn = self.costbook.wrap(
+                "kernel.train", self._trace_train, stage="tick",
+                statics=self._train_statics, graph=True, launch_counters=KERNELS)
+
+    def train_begin(self) -> Dict[str, object]:
+        """Dispatch one K-tick train (one graph replay on a card)."""
+        self.compile_train()
+        self._ensure_aux()
+        with self._span("kernel.dispatch"):
+            self.state, raw = self._train_fn(self.state)
+        self.tick_count += self._train_k
+        self.train_dispatches += 1
+        self.train_ticks += self._train_k
+        return raw
+
+    def train_finish(self, raw: Dict[str, object]) -> List[TickOutputs]:
+        """Fetch one train's ``[K, L]`` summary and fan out its K frames in
+        tick order: lane i's events, then lane i's deaths (attributed from
+        lane i's own died mask), before anything of lane i+1."""
+        with self._span("kernel.summary_fetch"):
+            summary = raw["summary"].cpu().numpy()
+        self.train_fetch_bytes += summary.nbytes
+        leaves, spec, _ = flatten({k: v for k, v in raw.items() if k != "summary"})
+        outs: List[TickOutputs] = []
+        for i in range(self._train_k):
+            out = self._outputs(unflatten(spec, [x[i] for x in leaves]))
+            row = summary[i]
+            self._observe_counters(out, row)
+            with self._span("kernel.post_tick"):
+                self._post_tick(out, row, exact_deaths=True)
+            outs.append(out)
+        return outs
+
+    def train(self, n: int) -> List[TickOutputs]:
+        """Advance n frames in n // K train dispatches plus n % K single
+        ticks, delivering every frame's host effects; one TickOutputs per
+        frame, in order."""
+        n = int(n)
+        k = self._train_k
+        if k < 1:
+            raise RuntimeError("configure_train(k) before train()")
+        outs: List[TickOutputs] = []
+        for _ in range(n // k):
+            outs.extend(self.train_finish(self.train_begin()))
+        for _ in range(n % k):
+            outs.append(self.tick())
+        return outs
+
+    def _post_tick(self, out: TickOutputs, summary: np.ndarray,
+                   exact_deaths: bool = False) -> None:
         n_cls = len(self.store.class_order)
         off = n_cls + len(out.diff_count)
         event_counts = summary[off:off + len(out.events)]
@@ -350,9 +646,17 @@ class Kernel(Module):
         if live:
             self.events.dispatch_device_events(live, self.store)
         for cname, cnt in zip(self.store.class_order, summary[:n_cls]):
-            if int(cnt):
-                for g in self.store.reconcile_deaths(self.state, cname):
-                    self._fire_class_event(g, cname, ObjectEvent.DESTROY)
+            if not int(cnt):
+                continue
+            if exact_deaths:
+                # a train frees the rows of THIS lane's died mask: the
+                # carried state cannot say which tick killed a row
+                rows = np.flatnonzero(out.died[cname].cpu().numpy())
+                dead = self.store.release_rows(cname, rows)
+            else:
+                dead = self.store.reconcile_deaths(self.state, cname)
+            for g in dead:
+                self._fire_class_event(g, cname, ObjectEvent.DESTROY)
 
     # -- object lifecycle (host control plane) ------------------------------
 

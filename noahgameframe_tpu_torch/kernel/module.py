@@ -68,6 +68,12 @@ class Module:
 
     def finalize(self) -> None: ...
 
+    def capture_key(self) -> dict:
+        """Host-side values this module's phases close over (a bucket, an
+        engine, an environment knob).  The kernel keys its captured CUDA
+        graphs on them: a change captures the tick again."""
+        return {}
+
     # -- device phase registration ------------------------------------------
 
     def add_phase(self, name: str, fn: PhaseFn, order: int = 100) -> None:

@@ -1,28 +1,39 @@
-"""Cell-table binning for the combat stencil (the sort engine).
+"""Cell-table binning for the combat stencil.
 
-Counterpart of ``noahgameframe_tpu/ops/stencil.py`` with its default
-``NF_BINNING=sort`` engine:
+Counterpart of ``noahgameframe_tpu/ops/stencil.py``.  ``NF_BINNING``
+(:func:`binning_mode`) picks the slot-assignment engine:
 
-1. ``_sorted_segments`` sorts entities by cell id with one stable argsort
-   and ranks each entity within its cell run.
-2. ``build_cell_table_pair`` packs features of the full population (the
+- ``sort`` (the default): ``_sorted_segments`` sorts entities by cell id
+  with one stable argsort and ranks each entity within its cell run;
+- ``count``: no sort at all.  ``_counting_ranks`` runs K rounds of
+  scatter-min selection (``scatter_reduce_(..., "amin")``, which is
+  order-independent on integers, so deterministic): round r gives each
+  cell's smallest not-yet-ranked row id rank r.
+
+Both place the K smallest row ids of each cell and dump the rest, so
+their tables are bit-identical, overflow drops included.  Then:
+
+1. ``build_cell_table_pair`` packs features of the full population (the
    victims) and of a subset (the attackers) into dense
-   ``[n_cells*K + 1, F+1]`` payload tables from that one sort; entities
-   beyond a cell's K slots land in the dump slot (the last row) and are
-   counted in ``dropped``.  ``build_cell_slots_pair`` returns the same
-   slot assignments without the payloads (the fused engine's input).
-3. ``stencil_fold`` walks the 3x3 neighborhood as nine shifted views of
+   ``[n_cells*K + 1, F+1]`` payload tables; entities beyond a cell's K
+   slots land in the dump slot (the last row) and are counted in
+   ``dropped``.  ``build_cell_slots_pair`` returns the same slot
+   assignments without the payloads (the fused engine's input).
+2. ``stencil_fold`` walks the 3x3 neighborhood as nine shifted views of
    the padded ``[H, W, K, F]`` grid; ``pull_slots`` maps per-slot results
    back to rows.
 
-Placement is bit-identical to the JAX package's: the stable rank fixes
-which entities overflow, and the dump slot is re-pinned to zero after the
-payload scatter (duplicate writes land there in no fixed order).
+Placement is bit-identical to the JAX package's: the rank fixes which
+entities overflow, and the dump slot is re-pinned to zero after the
+payload scatter (duplicate writes land there in no fixed order).  The
+counting engine has no hand kernel: the JAX package computes it outside
+Pallas, and so does the port.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple, Tuple, TypeVar
 
 import torch
@@ -31,6 +42,21 @@ import torch.nn.functional as F
 from .aoi import cell_of
 
 A = TypeVar("A")
+
+ENV_BINNING = "NF_BINNING"
+BINNING_MODES = ("sort", "count")
+
+
+def binning_mode() -> str:
+    """The validated ``NF_BINNING`` mode; unset or empty means "sort".
+    Unknown values raise: a typo'd mode silently running the default
+    would mislabel any A/B it ran under."""
+    raw = os.environ.get(ENV_BINNING, "").strip()
+    if not raw:
+        return "sort"
+    if raw not in BINNING_MODES:
+        raise ValueError(f"{ENV_BINNING}={raw!r}: expected one of {BINNING_MODES}")
+    return raw
 
 # 3x3 stencil in (dy, dx) order: candidate iteration order, and therefore
 # tie-breaking, is identical in every engine
@@ -164,43 +190,100 @@ def table_from_slots(features, active, slot_of, n_cells: int, cell_size: float,
                      width, cell_size, bucket)
 
 
+def _cell_counts(key: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """[n_cells + 1] int32 occupancy per cell; the last bin counts the
+    inactive rows (key == n_cells)."""
+    counts = torch.zeros((n_cells + 1,), dtype=torch.int32, device=key.device)
+    return counts.scatter_add_(0, key.long(), torch.ones_like(key, dtype=torch.int32))
+
+
+def _counting_ranks(key: torch.Tensor, n_cells: int, kmax: int) -> torch.Tensor:
+    """Within-cell rank in row-id order without a sort: ``kmax`` rounds of
+    scatter-min selection.  Round r finds each cell's smallest
+    not-yet-ranked row id, gives it rank r and retires it; rows never
+    selected (rank >= kmax, or inactive, key == n_cells) keep ``kmax``.
+    Equal to the stable-argsort rank wherever it decides placement."""
+    n = key.shape[0]
+    dev = key.device
+    idx = key.long()
+    sentinel = n  # above every live row id; also the "retired" mark
+    remaining = torch.where(key < n_cells, torch.arange(n, dtype=torch.int32, device=dev),
+                            sentinel)
+    rank = torch.full((n,), kmax, dtype=torch.int32, device=dev)
+    for r in range(kmax):
+        win = torch.full((n_cells + 1,), sentinel, dtype=torch.int32, device=dev)
+        win.scatter_reduce_(0, idx, remaining, "amin")
+        # the `< sentinel` guard keeps the retired rows of an exhausted
+        # cell (win == sentinel) from matching
+        is_win = (remaining < sentinel) & (remaining == win[idx])
+        rank = torch.where(is_win, r, rank)
+        remaining = torch.where(is_win, sentinel, remaining)
+    return rank
+
+
+def _counting_slots(key: torch.Tensor, n_cells: int, bucket: int) -> torch.Tensor:
+    """Per-row flat slot from the counting ranks: ``cell * bucket + rank``
+    for placed rows, the dump slot for the rest."""
+    rank = _counting_ranks(key, n_cells, bucket)
+    return torch.where(rank < bucket, key * bucket + rank, n_cells * bucket).to(torch.int32)
+
+
+def _pair_slots(pos, active, sub_mask, cell_size: float, width: int, bucket: int,
+                sub_bucket: int):
+    """The two slot assignments (full population, subset) under the
+    ``NF_BINNING`` engine: ``(n_cells, slot_of, sub_slot_of)``."""
+    n = pos.shape[0]
+    if binning_mode() == "count":
+        n_cells, key = _cell_keys(pos, active, cell_size, width)
+        sub_key = torch.where(sub_mask, key, n_cells)
+        return (n_cells, _counting_slots(key, n_cells, bucket),
+                _counting_slots(sub_key, n_cells, sub_bucket))
+    n_cells, order, skey, head, rank = _sorted_segments(pos, active, cell_size, width)
+    sub_rank = _subset_ranks(sub_mask, order, head, n_cells, sub_bucket)
+    return (n_cells, _slots_from_ranks(n, n_cells, order, skey, rank, bucket),
+            _slots_from_ranks(n, n_cells, order, skey, sub_rank, sub_bucket))
+
+
+def build_cell_table(pos, active, features, cell_size: float, width: int,
+                     bucket: int) -> CellTable:
+    """Bin ``active`` entities into the grid, carrying ``features``, under
+    the ``NF_BINNING`` engine."""
+    if binning_mode() == "count":
+        n_cells, key = _cell_keys(pos, active, cell_size, width)
+        slot_of = _counting_slots(key, n_cells, bucket)
+    else:
+        n_cells, order, skey, _head, rank = _sorted_segments(pos, active, cell_size, width)
+        slot_of = _slots_from_ranks(pos.shape[0], n_cells, order, skey, rank, bucket)
+    return table_from_slots(features, active, slot_of, n_cells, cell_size, width, bucket)
+
+
 def build_cell_table_pair(
     pos, active, features, sub_mask, sub_features,
     cell_size: float, width: int, bucket: int, sub_bucket: int,
 ) -> Tuple[CellTable, CellTable]:
-    """The full table AND a subset table from ONE stable argsort.
+    """The full table AND a subset table from one key pass.  Under
+    ``sort`` both come from one stable argsort (the subset ranks by a
+    segmented cumsum over the shared order); under ``count`` each table
+    runs its own scatter-min rounds, the subset over its own keys.
     ``sub_mask`` must be a subset of ``active`` (combat: attackers among
     all alive entities)."""
-    n = pos.shape[0]
-    n_cells, order, skey, head, rank = _sorted_segments(
-        pos, active, cell_size, width)
-    full = table_from_slots(
-        features, active, _slots_from_ranks(n, n_cells, order, skey, rank, bucket),
-        n_cells, cell_size, width, bucket)
-    sub_rank = _subset_ranks(sub_mask, order, head, n_cells, sub_bucket)
-    sub = table_from_slots(
-        sub_features, sub_mask,
-        _slots_from_ranks(n, n_cells, order, skey, sub_rank, sub_bucket),
-        n_cells, cell_size, width, sub_bucket)
-    return full, sub
+    n_cells, slot_of, sub_slot_of = _pair_slots(
+        pos, active, sub_mask, cell_size, width, bucket, sub_bucket)
+    return (table_from_slots(features, active, slot_of, n_cells, cell_size, width, bucket),
+            table_from_slots(sub_features, sub_mask, sub_slot_of, n_cells, cell_size,
+                             width, sub_bucket))
 
 
 def build_cell_slots_pair(
     pos, active, sub_mask, cell_size: float, width: int, bucket: int, sub_bucket: int,
 ) -> Tuple[CellSlots, CellSlots]:
-    """``build_cell_table_pair`` minus the payloads: the same sort, ranks
+    """``build_cell_table_pair`` minus the payloads: the same engine, ranks
     and dump-slot rules, returning only the two slot assignments."""
-    n = pos.shape[0]
-    n_cells, order, skey, head, rank = _sorted_segments(
-        pos, active, cell_size, width)
-    full = slots_from_assignment(
-        active, _slots_from_ranks(n, n_cells, order, skey, rank, bucket),
-        n_cells, cell_size, width, bucket)
-    sub_rank = _subset_ranks(sub_mask, order, head, n_cells, sub_bucket)
-    sub = slots_from_assignment(
-        sub_mask, _slots_from_ranks(n, n_cells, order, skey, sub_rank, sub_bucket),
-        n_cells, cell_size, width, sub_bucket)
-    return full, sub
+    n_cells, slot_of, sub_slot_of = _pair_slots(
+        pos, active, sub_mask, cell_size, width, bucket, sub_bucket)
+    return (slots_from_assignment(active, slot_of, n_cells, cell_size, width, bucket),
+            slots_from_assignment(sub_mask, sub_slot_of, n_cells, cell_size, width,
+                                  sub_bucket))
 
 
 def stencil_fold(grid: torch.Tensor, fold: Callable[[A, torch.Tensor], A], init: A) -> A:

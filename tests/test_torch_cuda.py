@@ -150,3 +150,114 @@ def test_world_on_cuda_matches_cpu(cuda):
         w.kernel.enable_digest()
         streams.append([w.tick().counters for _ in range(20)])
     assert streams[0] == streams[1]
+
+
+def test_world_on_cuda_matches_cpu_with_skin(cuda, monkeypatch):
+    """NF_VERLET_SKIN=2.0: the refresh the card runs gives the CPU's
+    digest and counter stream, grid_rebuilds and grid_reuses included."""
+    monkeypatch.setenv("NF_VERLET_SKIN", "2.0")
+    streams = []
+    for device in (cuda, "cpu"):
+        w = build_benchmark_world(1024, seed=9, device=device)
+        w.kernel.enable_digest()
+        streams.append([w.tick().counters for _ in range(20)])
+    assert streams[0] == streams[1]
+    assert sum(c["grid_reuses"] for c in streams[0]) > 0
+
+
+def _digest(kernel):
+    from noahgameframe_tpu_torch.kernel.kernel import state_digest
+
+    return int(state_digest(kernel.state, kernel.store.class_order))
+
+
+@pytest.mark.parametrize("skin", [0.0, 2.0])
+@pytest.mark.parametrize("engine", [1, 2])
+def test_graph_run_device_matches_eager(cuda, engine, skin, monkeypatch):
+    """run_device as a CUDA graph lands on the eager loop's state (digest
+    equal, bit for bit) and counts kernel launches per replay.  Without a
+    skin, a second capture after invalidate() is a sanctioned one (with a
+    skin, invalidate() drops the Verlet cache, and the rebuilt anchor may
+    drop other rows of an overfull cell than the stale one would)."""
+    monkeypatch.setenv("NF_VERLET_SKIN", str(skin))
+    worlds = [build_benchmark_world(4096, seed=11, device=cuda) for _ in range(2)]
+    for w in worlds:
+        w.combat.use_pallas = engine
+    eager, graph = (w.kernel for w in worlds)
+    eager.run_device(24, graph=False)
+    before = {k: v.launches for k, v in sc.KERNELS.items()}
+    graph.run_device(12)
+    mark = graph.costbook.mark()
+    if not skin:
+        graph.invalidate()
+    graph.run_device(12)
+    assert _digest(graph) == _digest(eager)
+    name = "combat_fold" if engine == 1 else "fused_neighborhood"
+    captures = 1 if skin else 2
+    # each capture runs 2 eager warm-up ticks; 24 ticks are replayed
+    assert sc.KERNELS[name].launches - before[name] == 24 + 2 * captures
+    assert graph.costbook.unexplained_since(mark) == []
+    assert graph.costbook.entries["kernel.run"].causes == ({} if skin else {"rewrap": 1})
+    assert graph.costbook.launches_per_replay("kernel.run") > 0
+
+
+@pytest.mark.parametrize("engine", [1, 2])
+def test_graph_train_matches_tick(cuda, engine):
+    """A K=4 train (one CUDA graph of four observed steps) with a ragged
+    tail gives tick()'s counters and digests, tick by tick."""
+    worlds = [build_benchmark_world(4096, seed=12, device=cuda) for _ in range(2)]
+    for w in worlds:
+        w.combat.use_pallas = engine
+        w.kernel.enable_digest()
+    ticked = [worlds[0].kernel.tick().counters for _ in range(14)]
+    k = worlds[1].kernel
+    k.configure_train(4)
+    trained = [o.counters for o in k.train(14)]
+    assert trained == ticked
+    assert k.train_dispatches == 3
+    assert k.costbook.entries["kernel.train"].last["graph"] is True
+
+
+@pytest.mark.parametrize("engine", [1, 2])
+def test_graph_train_lanes_match_tick(cuda, engine):
+    """The fired, diff, died and event masks of every frame of two K = 4
+    train replays, read after both ran, equal tick()'s frame for frame:
+    each dispatch returns its own copy of the graph's lane buffers."""
+    from noahgameframe_tpu_torch.core.tree import flatten
+
+    def lanes(out):
+        leaves, spec, _ = flatten({"fired": out.fired, "diff": out.diff, "died": out.died,
+                                   "events": [(e.mask, e.params) for e in out.events]})
+        return spec, leaves
+
+    worlds = [build_benchmark_world(4096, seed=12, device=cuda) for _ in range(2)]
+    for w in worlds:
+        w.combat.use_pallas = engine
+    want = [lanes(worlds[0].kernel.tick()) for _ in range(8)]
+    k = worlds[1].kernel
+    k.configure_train(4)
+    outs = k.train(8)
+    assert k.train_dispatches == 2
+    assert k.costbook.entries["kernel.train"].last["graph"] is True
+    for t, (out, (spec, leaves)) in enumerate(zip(outs, want)):
+        got_spec, got = lanes(out)
+        assert got_spec == spec, f"tick {t}"
+        assert all(torch.equal(a, b) for a, b in zip(got, leaves)), f"tick {t}"
+
+
+def test_graph_replay_sees_eager_ticks_and_host_writes(cuda):
+    """Between replays, an eager observed tick and a host write (a spawn
+    wave, which re-arms every timer) replace state leaves; the next
+    replay copies them in and lands where the eager loop lands."""
+    worlds = [build_benchmark_world(4000, seed=13, device=cuda) for _ in range(2)]
+    counters = []
+    for w, graph in zip(worlds, (False, True)):
+        k = w.kernel
+        k.run_device(5, graph=graph)
+        counters.append(w.tick().counters)
+        k.run_device(5, graph=graph)
+        w.seed_npcs(64)
+        k.run_device(5, graph=graph)
+    assert counters[0] == counters[1]
+    assert _digest(worlds[1].kernel) == _digest(worlds[0].kernel)
+    assert worlds[1].kernel.costbook.entries["kernel.run"].compiles == 1
