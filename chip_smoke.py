@@ -36,7 +36,21 @@ non-zero without printing a result:
 5. ``build_benchmark_world(4096)`` gives the same digest stream for 60
    ticks on ``cuda`` and on ``cpu``;
 (e) one run of the bench entry (``python -m noahgameframe_tpu_torch.bench``)
-   at 1M, its JSON line printed on a line of its own.
+   at 1M, its JSON line printed on a line of its own;
+(f) many-worlds rooms at R = 16,384 (parallel/rooms.py ``RoomBatch``, the
+   rooms recipe of the JAX package's bench: 64 NPC rows, 32 seeded, skin
+   2.0): all rooms admitted into one batch; 30 ticks as the CUDA graph of
+   the vmapped step under engines 1, 0 and 2 from the same state land on
+   equal ``[R]`` digest lanes, which equal single-room control worlds
+   ticked with ``run_device`` (first, middle and last room); the profiler
+   sees exactly one fold-kernel launch per replayed rooms tick (engines 1
+   and 2); ``train(K=8)`` equals ``tick()`` over 16 ticks; a churn
+   (destroy, create into the recycled slot, re-home) drops no row and
+   re-captures nothing; then the bench's rooms ladder (``--rooms``), its
+   line printed.  Phase 2 also holds each kernel's room axis: at the
+   rooms geometry (R = 16,384, 10 x 10 cells, Kv = 8, Ka = 6) and at R = 3
+   with width 13, one batched launch equals a loop of one launch a room
+   and the vmapped plain version, bit for bit, with times and bounds.
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -57,10 +71,12 @@ import numpy as np
 import torch
 
 from noahgameframe_tpu_torch.core import tree
+from noahgameframe_tpu_torch.core.prng import prng_key
 from noahgameframe_tpu_torch.game import world as gw
 from noahgameframe_tpu_torch.kernel import kernel as km
 from noahgameframe_tpu_torch.ops import stencil as sc
 from noahgameframe_tpu_torch.ops import stencil_cuda as sck
+from noahgameframe_tpu_torch.parallel import rooms
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # rate outside the tensor cores
@@ -70,7 +86,9 @@ PEAK_F32_PER_S = 67e12
 FLOPS_PER_PAIR = 5
 
 N_MAIN = 1_000_000
+ROOMS_MAIN = 16_384  # the rooms path: 16,384 rooms of 64 NPC rows
 SEED = 0
+DEV = "cuda"
 
 
 def emit(obj) -> None:
@@ -82,16 +100,35 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events).  With
+    ``graph`` the ``reps`` calls are captured in one CUDA graph and the
+    replay is timed, so the host's time per call (Python, the custom op's
+    dispatch) is not counted: a kernel's own time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        gc.collect()  # no dropped graph may be destroyed mid-capture
+        gc.disable()
+        try:
+            with torch.cuda.graph(g):
+                for _ in range(reps):
+                    fn()
+        finally:
+            gc.enable()
+        g.replay()
+        run = g.replay
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    if run is not None:
+        run()
+    else:
+        for _ in range(reps):
+            fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -218,16 +255,20 @@ def kernels_vs_plain(pop, cell, width, kv, ka, radius, timed: bool, plans=None,
                   + 3 * n_slots * 4, FLOPS_PER_PAIR * pairs2)
     out["timing"] = {
         "combat_fold": dict(
-            ms=time_ms(lambda: sck.combat_fold(vt, at, radius)),
+            ms=time_ms(lambda: sck.combat_fold(vt, at, radius), graph=True),
+            # the eager wrapper, the custom op's host dispatch included
+            eager_ms=time_ms(lambda: sck.combat_fold(vt, at, radius)),
             plain_ms=time_ms(lambda: sck.combat_fold_plain(vt, at, radius), reps=5),
             bound_ms=b1[0], bound_by=b1[1], pairs=pairs1),
         "fused_neighborhood": dict(
-            ms=time_ms(lambda: sck.fused_neighborhood(pop["bank"], vs, ats, radius)),
+            ms=time_ms(lambda: sck.fused_neighborhood(pop["bank"], vs, ats, radius),
+                       graph=True),
+            eager_ms=time_ms(lambda: sck.fused_neighborhood(pop["bank"], vs, ats, radius)),
             plain_ms=time_ms(
                 lambda: sck.fused_neighborhood_plain(pop["bank"], vs, ats, radius), reps=5),
             bound_ms=b2[0], bound_by=b2[1], pairs=pairs2,
             # the wrapper's row-table build, part of its ms above
-            row_tables_ms=time_ms(lambda: sck.row_tables(vs, ats, n))),
+            row_tables_ms=time_ms(lambda: sck.row_tables(vs, ats, n), graph=True)),
     }
     return out
 
@@ -298,6 +339,171 @@ def phase_kernels():
     return timing, max_err
 
 
+# -- phase 2: the kernels' room axis --------------------------------------------
+
+
+def room_population(rooms_n, cap, alive_n, extent, seed, *, duty, origin_rooms=0):
+    """``rooms_n`` independent combat populations of ``cap`` rows (the first
+    ``alive_n`` alive) as ``[R, cap, ...]`` tensors.  The first
+    ``origin_rooms`` rooms put two attacking scene-0, group-0 entities
+    within 3 units of (0, 0), within reach of empty victim slots."""
+    rng = np.random.default_rng(seed)
+    shape = (rooms_n, cap)
+    pos = np.zeros(shape + (2,), np.float32)
+    pos[:, :alive_n] = rng.uniform(0.0, extent, (rooms_n, alive_n, 2)).astype(np.float32)
+    alive = np.zeros(shape, bool)
+    alive[:, :alive_n] = True
+    attacking = alive & (rng.random(shape) < duty)
+    atk = rng.integers(1, 31, shape).astype(np.float32)
+    camp = rng.integers(0, 2, shape).astype(np.float32)
+    scene = np.ones(shape, np.float32)
+    group = np.zeros(shape, np.float32)
+    o = min(origin_rooms, rooms_n)
+    if o:
+        pos[:o, :2] = rng.uniform(0.0, 3.0, (o, 2, 2)).astype(np.float32)
+        scene[:o, :2], camp[:o, :2] = 0.0, 1.0
+        attacking[:o, :2] = True
+    eff = np.where(attacking, atk, 0.0).astype(np.float32)
+    rows = np.broadcast_to(np.arange(cap, dtype=np.float32), shape)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    return dict(
+        pos=t(pos), alive=t(alive), attacking=t(attacking),
+        vic=t(np.stack([pos[..., 0], pos[..., 1], camp, scene, group], -1)),
+        att=t(np.stack([pos[..., 0], pos[..., 1], eff, camp, scene, group, rows], -1)),
+        bank=t(np.stack([pos[..., 0], pos[..., 1], camp, scene, group, eff], -1)),
+    )
+
+
+def room_cell_counts(slot_of: torch.Tensor, width: int, bucket: int) -> torch.Tensor:
+    """[R, H, W] occupied slots per cell of each room's slot assignment."""
+    r, cells = slot_of.shape[0], width * width
+    cell = torch.where(slot_of < cells * bucket, slot_of.long() // bucket, cells)
+    flat = (torch.arange(r, device=slot_of.device)[:, None] * (cells + 1) + cell).reshape(-1)
+    counts = torch.bincount(flat, minlength=r * (cells + 1)).reshape(r, cells + 1)
+    return counts[:, :cells].reshape(r, width, width)
+
+
+def room_nbhd_sum(c: torch.Tensor) -> torch.Tensor:
+    """:func:`nbhd_sum` of each room's [H, W] counts."""
+    h, w = c.shape[-2:]
+    p = torch.nn.functional.pad(c, (1, 1, 1, 1))
+    return sum(p[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3))
+
+
+def room_kernels_vs_plain(pop, cell, width, kv, ka, radius, timed: bool):
+    """Both kernels over R rooms in one batched launch each (the vmap rules
+    of ``ops/stencil_cuda.py``), against a loop of one launch a room and
+    against the vmapped plain versions, every output slot compared."""
+    vmap = torch.func.vmap
+
+    def build(pos, alive, attacking, vic, att):
+        vt, at = sc.build_cell_table_pair(pos, alive, vic, attacking, att, cell, width, kv, ka)
+        return vt.payload, at.payload, vt.slot_of, at.slot_of, vt.dropped
+
+    def tables(v, a):
+        return (sc.CellTable(v, None, None, width, cell, kv),
+                sc.CellTable(a, None, None, width, cell, ka))
+
+    def slots(v, a):
+        return sc.CellSlots(v, None, width, cell, kv), sc.CellSlots(a, None, width, cell, ka)
+
+    bank = pop["bank"]
+    n_rooms = bank.shape[0]
+    with rooms.no_vmap_fallback():
+        vp, ap, vs, as_, vdrop = vmap(build)(pop["pos"], pop["alive"], pop["attacking"],
+                                             pop["vic"], pop["att"])
+        before = {k: c.launches for k, c in sck.KERNELS.items()}
+        k1 = vmap(lambda v, a: sck.combat_fold(*tables(v, a), radius))(vp, ap)
+        k2 = vmap(lambda b, v, a: sck.fused_neighborhood(b, *slots(v, a), radius))(bank, vs, as_)
+        after = {k: c.launches for k, c in sck.KERNELS.items()}
+        p1 = vmap(lambda v, a: sck.combat_fold_plain(*tables(v, a), radius))(vp, ap)
+        p2 = vmap(lambda b, v, a: sck.fused_neighborhood_plain(b, *slots(v, a), radius))(
+            bank, vs, as_)
+    check(all(after[k] == before[k] + 1 for k in before),
+          "one batched launch per kernel for all rooms")
+    loop1 = [sck.combat_fold(*tables(vp[r], ap[r]), radius) for r in range(n_rooms)]
+    loop2 = [sck.fused_neighborhood(bank[r], *slots(vs[r], as_[r]), radius)
+             for r in range(n_rooms)]
+    torch.cuda.synchronize()
+    err1 = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k1, p1))
+    err2 = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k2, p2))
+    check(err1 == 0, "batched combat_fold equals the vmapped plain version")
+    check(err2 == 0, "batched fused_neighborhood equals the vmapped plain version")
+    check(all(torch.equal(k1[i], torch.stack([x[i] for x in loop1])) for i in range(2)),
+          "batched combat_fold equals a loop of one launch a room")
+    check(all(torch.equal(k2[i], torch.stack([x[i] for x in loop2])) for i in range(3)),
+          "batched fused_neighborhood equals a loop of one launch a room")
+    del loop1, loop2
+    out = {"rooms": n_rooms, "width": width, "kv": kv, "ka": ka,
+           "vic_dropped": int(vdrop.sum()), "hits": int((k1[0] > 0).sum()),
+           "nbr_pairs": int(k2[2].sum()), "err": [err1, err2]}
+    if not timed:
+        return out
+    cells = width * width
+    plans = (sck.plan_fold("combat", width, kv, ka), sck.plan_fold("fused", width, kv, ka))
+    occ_v = room_cell_counts(vs, width, kv)
+    occ_a = room_cell_counts(as_, width, ka)
+    pairs1 = int((occ_v * room_nbhd_sum(occ_a)).sum())
+    pairs2 = pairs1 + int((occ_v * room_nbhd_sum(occ_v)).sum() - occ_v.sum())
+    b1 = bound_ms(4 * n_rooms * cells * (kv * sck.V_FEATS + ka * sck.A_FEATS)
+                  + 2 * n_rooms * cells * kv * 4, FLOPS_PER_PAIR * pairs1)
+    b2 = bound_ms(bank.nbytes + vs.nbytes + as_.nbytes + 3 * n_rooms * cells * kv * 4,
+                  FLOPS_PER_PAIR * pairs2)
+
+    with rooms.no_vmap_fallback():
+        def fold1():
+            return vmap(lambda v, a: sck.combat_fold(*tables(v, a), radius))(vp, ap)
+
+        def fold2():
+            return vmap(lambda b, v, a: sck.fused_neighborhood(
+                b, *slots(v, a), radius))(bank, vs, as_)
+
+        ms1, eager1 = time_ms(fold1, graph=True), time_ms(fold1)
+        ms2, eager2 = time_ms(fold2, graph=True), time_ms(fold2)
+        rows_ms = time_ms(lambda: vmap(lambda v, a: sck.row_tables(
+            *slots(v, a), bank.shape[1]))(vs, as_), graph=True)
+        plain1 = time_ms(lambda: vmap(lambda v, a: sck.combat_fold_plain(
+            *tables(v, a), radius))(vp, ap), reps=5)
+        plain2 = time_ms(lambda: vmap(lambda b, v, a: sck.fused_neighborhood_plain(
+            b, *slots(v, a), radius))(bank, vs, as_), reps=5)
+    out["timing"] = {
+        "combat_fold": dict(ms=ms1, eager_ms=eager1, plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1],
+                            pairs=pairs1, blocks=n_rooms * plans[0].blocks),
+        "fused_neighborhood": dict(ms=ms2, eager_ms=eager2, plain_ms=plain2, bound_ms=b2[0], bound_by=b2[1],
+                                   pairs=pairs2, blocks=n_rooms * plans[1].blocks,
+                                   row_tables_ms=rows_ms),
+    }
+    return out
+
+
+def phase_room_kernels():
+    """The room axis at the rooms geometry (R = 16,384 rooms of 64 rows, 32
+    alive, 10 x 10 cells of 6.0, Kv = 8, Ka = 6; the rooms recipe's attack
+    duty, timed, and a dense variant with entities at the origin) and at R
+    = 3 with width 13."""
+    cell, radius, width, kv, ka = 6.0, 4.0, 10, 8, 6
+    cases = {
+        "rooms_16384": (room_population(ROOMS_MAIN, 64, 32, 64.0, 21, duty=1 / 30),
+                        cell, width, True),
+        "rooms_16384_dense": (room_population(ROOMS_MAIN, 64, 32, 64.0, 22, duty=0.3,
+                                              origin_rooms=64), cell, width, False),
+        "rooms_3_width_13": (room_population(3, 64, 48, 52.0, 23, duty=0.3, origin_rooms=1),
+                             4.0, 13, False),
+    }
+    results, timing = {}, None
+    for name, (pop, c, w, timed) in cases.items():
+        r = room_kernels_vs_plain(pop, c, w, kv, ka, radius, timed)
+        if timed:
+            timing = r.pop("timing")
+        results[name] = r
+    check(results["rooms_16384_dense"]["hits"] > 0, "the dense rooms fight")
+    emit({"phase": "room_kernels_vs_plain", "tolerance": 0, "cases": results,
+          "timing_rooms_16384": timing})
+    max_err = {"combat_fold": max(r["err"][0] for r in results.values()),
+               "fused_neighborhood": max(r["err"][1] for r in results.values())}
+    return timing, max_err
+
+
 # -- phases 3-5 and (a)-(e) ---------------------------------------------------
 
 
@@ -333,7 +539,15 @@ def digest(kernel) -> int:
 
 
 def profile_ticks(kernel, n: int, *, host_ops: bool, graph: bool) -> dict:
-    """torch.profiler over n run_device ticks: the window's wall time, the
+    """:func:`profile_run` over n ``run_device`` ticks."""
+    out = profile_run(lambda: kernel.run_device(n, reconcile=False, graph=graph), n,
+                      host_ops=host_ops)
+    out["graph"] = graph
+    return out
+
+
+def profile_run(run, n: int, *, host_ops: bool) -> dict:
+    """torch.profiler over ``run()`` (n ticks): the window's wall time, the
     summed device time of its kernels and copies, their ratio (the card's
     busy share in that window), launches per tick, the launches the
     profiler saw of each hand kernel (``kernel_launches``: a fold kernel
@@ -347,7 +561,7 @@ def profile_ticks(kernel, n: int, *, host_ops: bool, graph: bool) -> dict:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        kernel.run_device(n, reconcile=False, graph=graph)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -360,7 +574,7 @@ def profile_ticks(kernel, n: int, *, host_ops: bool, graph: bool) -> dict:
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
-    out = {"ticks": n, "graph": graph, "wall_ms": wall_ms, "device_ms": device_ms,
+    out = {"ticks": n, "wall_ms": wall_ms, "device_ms": device_ms,
            "busy_share": device_ms / wall_ms if wall_ms else 0.0,
            "device_launches_per_tick": sum(r[2] for r in rows) / n,
            "kernel_launches": {name: sum(r[2] for r in rows if any(
@@ -663,6 +877,194 @@ def phase_bench():
     emit({"phase": "bench_entry", "line": line})
 
 
+# -- (f) many-worlds rooms ------------------------------------------------------
+
+
+def rooms_recipe():
+    """One room of the rooms recipe (the JAX package's ``run_rooms``): 64
+    NPC rows, 32 seeded, extent 64, skin 2.0, combat, movement and regen;
+    the digest on."""
+    w = gw.GameWorld(gw.WorldConfig(npc_capacity=64, player_capacity=8, extent=64.0,
+                                    seed=SEED, verlet_skin=2.0), device=DEV)
+    w.start()
+    w.scene.create_scene(1, width=64.0)
+    w.seed_npcs(32, rng=np.random.default_rng(SEED + 100))
+    w.kernel.enable_digest()
+    w.kernel._ensure_aux()
+    return w
+
+
+def restore_batch(batch, snap) -> None:
+    """Copy a snapshot into the batch state's own tensors (those its graphs
+    are bound to)."""
+    for dst, src in zip(tree.flatten(batch.state)[0], snap[0]):
+        dst.copy_(src)
+
+
+def phase_rooms():
+    """(f): R = 16,384 rooms on the card.  Returns each kernel's launches on
+    the rooms path (engine 1 and engine 2 runs of 30 replayed ticks)."""
+    w = rooms_recipe()
+    k = w.kernel
+    order = k.store.class_order
+    batch = rooms.RoomBatch(k, ROOMS_MAIN)
+    packer = rooms.RoomBinPacker(batch.capacity)
+
+    def room_of(i):
+        return k.state.replace(rng=prng_key(SEED + i, DEV))
+
+    t0 = time.perf_counter()
+    for i in range(ROOMS_MAIN):
+        check(batch.admit(packer.alloc(), room_of(i)) == i, "rooms fill slots in order")
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    state_bytes = sum(x.nbytes for x in tree.flatten(batch.state)[0])
+    s0 = snapshot(batch.state)
+    runs, launches = {}, {}
+    for engine in (1, 0, 2):
+        w.combat.use_pallas = engine
+        restore_batch(batch, s0)
+        t0 = time.perf_counter()
+        batch.run(1)  # captures rooms.run under this engine
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        restore_batch(batch, s0)
+        torch.cuda.reset_peak_memory_stats()
+        sck.reset_launch_counts()
+        t0 = time.perf_counter()
+        batch.run(30)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[engine] = {n: kk.launches for n, kk in sck.KERNELS.items()}
+        r = {"tick_ms": secs / 30 * 1e3, "room_ticks_per_s": ROOMS_MAIN * 30 / secs,
+             "capture_and_first_tick_s": capture_s,
+             "launches_per_tick": batch.costbook.launches_per_replay("rooms.run"),
+             "pool_bytes": batch.costbook.entries["rooms.run"].last.get("pool_bytes"),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "digests": batch.last_counters["state_digest"].astype(np.int64) & 0xFFFFFFFF,
+             "ticks": batch.last_counters["tick"].copy(), "launches": launches[engine]}
+        r["tick_ms_median_10"] = statistics.median(tick_times_rooms(batch, 10))
+        if engine:
+            r["profile_10_ticks"] = profile_run(lambda: batch.run(10), 10, host_ops=False)
+        runs[engine] = r
+    w.combat.use_pallas = None
+    d1 = runs[1]["digests"]
+    check(bool((runs[1]["ticks"] == 30).all()), "every room stamps tick 30")
+    check(len(np.unique(d1)) == ROOMS_MAIN, "the rooms differ")
+    for e in (0, 2):
+        check(np.array_equal(runs[e]["digests"], d1), f"engine {e} digest lanes equal engine 1's")
+    check(launches[1]["combat_fold"] == 30 and launches[1]["fused_neighborhood"] == 0,
+          "engine 1: one combat_fold launch per rooms tick")
+    check(launches[2]["fused_neighborhood"] == 30 and launches[2]["combat_fold"] == 0,
+          "engine 2: one fused_neighborhood launch per rooms tick")
+    check(launches[0]["combat_fold"] == launches[0]["fused_neighborhood"] == 0,
+          "engine 0 launched no kernel")
+    for e, name in ((1, "combat_fold"), (2, "fused_neighborhood")):
+        seen = runs[e]["profile_10_ticks"]["kernel_launches"][name]
+        check(seen == 10, f"the profiler sees one {name} kernel per replayed rooms tick "
+              f"(saw {seen} in 10)")
+
+    controls = {}
+    for i in (0, ROOMS_MAIN // 2, ROOMS_MAIN - 1):
+        cw = rooms_recipe()
+        cw.combat.use_pallas = 1
+        cw.kernel.state = cw.kernel.state.replace(rng=prng_key(SEED + i, DEV))
+        cw.kernel.run_device(30, reconcile=False)
+        controls[i] = rooms.room_digest(cw.kernel.state, order)
+        check(controls[i] == int(d1[i]), f"room {i} equals its single-room control")
+        del cw
+
+    # train(K=8) against tick() over 16 ticks from the same state
+    restore_batch(batch, s0)
+    batch.configure_train(8)
+    t0 = time.perf_counter()
+    lanes = batch.train(16)
+    first_trains_s = time.perf_counter() - t0
+    restore_batch(batch, s0)
+    ticked = []
+    t0 = time.perf_counter()
+    for _ in range(16):
+        batch.tick()
+        ticked.append(batch.last_summary.copy())
+    tick_s = time.perf_counter() - t0
+    check(all(np.array_equal(lanes[t], ticked[t]) for t in range(16)),
+          "train(K=8) summaries, counters and digests equal tick()'s over 16 ticks")
+    restore_batch(batch, s0)
+    t0 = time.perf_counter()
+    batch.train(16)
+    train_s = time.perf_counter() - t0
+
+    # churn: destroy, create into the recycled slot, re-home; nothing drops
+    # and nothing re-captures (the run loop is captured anew first: the
+    # engine runs above left it captured under engine 2)
+    batch.run(1)
+    mark = batch.costbook.mark()
+    packer.free(1)
+    new_slot = batch.admit(packer.alloc(), room_of(ROOMS_MAIN + 1))
+    check(new_slot == 1, "create recycles the destroyed room's slot")
+    packer.free(2)
+    src = ROOMS_MAIN - 2
+    rows_before = int(batch.state.classes["NPC"].alive[src].sum())
+    digest_before = batch.digest(src)
+    dst = packer.alloc()
+    batch.rehome(src, dst)
+    packer.free(src)
+    dropped = rows_before - int(batch.state.classes["NPC"].alive[dst].sum())
+    check(dropped == 0 and batch.digest(dst) == digest_before,
+          "the re-homed room keeps every row and its digest")
+    batch.run(10)
+    batch.tick()
+    unexplained = batch.costbook.unexplained_since(mark)
+    check(unexplained == [] and batch.costbook.compiles_since(mark) == [],
+          "churn re-captures nothing")
+    for r in runs.values():
+        r.pop("digests")
+        r.pop("ticks")
+    emit({"phase": "rooms", "rooms": ROOMS_MAIN, "npc_rows_per_room": 64, "seeded": 32,
+          "state_bytes": state_bytes, "admit_s": admit_s,
+          "admit_ms_per_room": admit_s / ROOMS_MAIN * 1e3, "digests_equal": True,
+          "engines": runs, "controls": {str(i): d for i, d in controls.items()},
+          "train_vs_tick": {"k": 8, "ticks": 16, "equal": True,
+                            "first_two_trains_s": first_trains_s,
+                            "train_tick_ms": train_s / 16 * 1e3,
+                            "observed_tick_ms": tick_s / 16 * 1e3,
+                            "capture": batch.costbook.entries["rooms.train"].last},
+          "churn": {"destroyed": 1, "created": 1, "rehomed": 1, "dropped_rows": dropped,
+                    "unexplained": len(unexplained)},
+          "costbook": batch.costbook.summary()})
+    del batch, s0, lanes, w, k
+    return {"combat_fold": launches[1]["combat_fold"],
+            "fused_neighborhood": launches[2]["fused_neighborhood"]}
+
+
+def tick_times_rooms(batch, n: int) -> list:
+    """Device time of n single ``run(1)`` rooms ticks, by CUDA events."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    for i in range(n):
+        batch.run(1)
+        events[i + 1].record()
+    events[-1].synchronize()
+    return [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+
+
+def phase_bench_rooms():
+    """(f): the bench's rooms ladder, as a user runs it (a subprocess)."""
+    cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--rooms"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"the rooms bench exits 0 ({proc.stderr[-2000:]})")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = line["detail"]
+    check(line["metric"] == "rooms_room_ticks_per_sec" and line["value"] > 0,
+          "the rooms bench measured its ticks")
+    check(d["all_gates"] and all(p["graph"] for p in d["points"]),
+          "the rooms bench's gates hold and its run loop is a graph")
+    check([p["rooms"] for p in d["points"]] == [256, 4096, ROOMS_MAIN],
+          "the rooms bench ran its ladder")
+    emit({"phase": "bench_rooms", "line": line})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -678,6 +1080,8 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
 
     timing, max_err = phase_kernels()
+    room_timing, room_err = phase_room_kernels()
+    free()
     w, s0, main_launches = phase_main_path()
     phase_binning(w, s0)
     phase_train(w)
@@ -688,18 +1092,29 @@ def main() -> int:
     free()
     phase_cpu_parity()
     phase_bench()
+    rooms_launches = phase_rooms()
+    free()
+    phase_bench_rooms()
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
     launches = {"combat_fold": main_launches["combat_fold"],
                 "fused_neighborhood": fused_launches}
+    # each kernel at the 1M world geometry (its main path) and, as rooms_*,
+    # at the rooms geometry (R = 16,384 rooms, 10 x 10 cells, Kv = 8, Ka = 6)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
          "replaces": sck.KERNELS[name].replaces,
-         "launches": launches[name], "max_abs_err": max_err[name],
-         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+         "launches": launches[name], "max_abs_err": max(max_err[name], room_err[name]),
+         "ms": timing[name]["ms"], "eager_ms": timing[name]["eager_ms"],
+         "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
-         "library_ms": None}
+         "library_ms": None,
+         "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
+         "rooms_eager_ms": room_timing[name]["eager_ms"],
+         "rooms_plain_ms": room_timing[name]["plain_ms"],
+         "rooms_bound_ms": room_timing[name]["bound_ms"],
+         "rooms_bound_by": room_timing[name]["bound_by"]}
         for name in ("combat_fold", "fused_neighborhood")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

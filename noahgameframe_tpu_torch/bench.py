@@ -1,8 +1,11 @@
-"""The port's benchmark entry: the world tick of ``build_benchmark_world``.
+"""The port's benchmark entry: the world tick of ``build_benchmark_world``,
+or the many-worlds rooms ladder.
 
     python -m noahgameframe_tpu_torch.bench [--entities 1000000] [--ticks 90]
         [--seed 42] [--train K] [--lat-k N] [--lat-budget-s S] [--no-combat]
         [--device cuda]
+    python -m noahgameframe_tpu_torch.bench --rooms [--rooms-count 256,4096,16384]
+        [--rooms-entities 64] [--rooms-ticks 30] [--rooms-churn 8] [--train K]
 
 Counterpart of ``run_bench`` in the repository's ``bench.py``: builds the
 world, times a ``run_device`` window, takes single-step latency samples
@@ -19,6 +22,16 @@ It adds ``device_name`` and ``power_limit_w`` (from ``nvidia-smi``),
 ``launches_per_tick`` (device launches of one replay), and has no
 ``vs_baseline``.  It never falls back to the CPU: without a card it
 fails unless ``--device cpu`` is given.
+
+``--rooms`` runs the counterpart of ``run_rooms`` (parallel/rooms.py's
+``RoomBatch`` on one card, the JAX package's ladder without its mesh):
+per rung of R rooms, the admit cost, single-tick p50/p99 (``tick()`` with
+its ``[R, L]`` counter fetch), fused room-ticks/s (``run(2 * ticks)``, one
+CUDA graph replayed), a re-home churn with its dropped rows and
+unexplained re-captures, and under ``--train K`` the train arm and a
+120-tick digest parity of trains against ticks.  Its line's metric is
+``rooms_room_ticks_per_sec`` (``rooms_train_room_ticks_per_sec`` under
+``--train``) at the last rung.
 """
 
 from __future__ import annotations
@@ -225,6 +238,206 @@ def run_bench(args, device: torch.device) -> dict:
             "unit": "entity-ticks/s", "detail": detail}
 
 
+def _rooms_point(args, device: torch.device, n_rooms: int, sync) -> dict:
+    """One rung of the rooms ladder (``run_rooms``'s ``point``)."""
+    import numpy as np
+
+    from .core.prng import prng_key
+    from .game.world import WorldConfig
+    from .parallel.rooms import RoomBatch, RoomBinPacker
+
+    per_room = int(args.rooms_entities)
+    seeded = max(1, per_room // 2)
+    ticks = int(args.rooms_ticks)
+    train_k = int(args.train or 0)
+    t0 = time.perf_counter()
+    w = GameWorld(WorldConfig(npc_capacity=per_room, player_capacity=8, extent=64.0,
+                              seed=args.seed, combat=True, movement=True, regen=True,
+                              verlet_skin=2.0), device=device)
+    w.start()
+    w.scene.create_scene(1, width=64.0)
+    w.seed_npcs(seeded, rng=np.random.default_rng(args.seed + 100))
+    w.kernel._ensure_aux()
+    batch = RoomBatch(w.kernel, n_rooms)
+    packer = RoomBinPacker(batch.capacity)
+    sync()
+    build_s = time.perf_counter() - t0
+
+    def room_of(i):
+        return w.kernel.state.replace(rng=prng_key(args.seed + i, device))
+
+    # warm-up captures every entry once, then the no-re-capture gate arms:
+    # churn after the mark must be free
+    batch.admit(packer.alloc(), room_of(0))
+    batch.tick()
+    batch.run(1)
+    if train_k > 1:
+        batch.configure_train(train_k)
+        batch.train(train_k)
+    batch.extract(0)
+    batch.rehome(0, 1)
+    packer.free(0)
+    mark = batch.costbook.mark()
+
+    # every slot but one; the spare is what the churn rotates rooms through
+    t0 = time.perf_counter()
+    used = []
+    while packer.free_count > 1:
+        slot = packer.alloc()
+        batch.admit(slot, room_of(len(used)))
+        used.append(slot)
+    sync()
+    admit_s = time.perf_counter() - t0
+
+    lat = []
+    for _ in range(ticks):
+        t1 = time.perf_counter()
+        counters = batch.tick()
+        lat.append(time.perf_counter() - t1)
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    p50 = float(lat_ms[len(lat_ms) // 2])
+    p99 = float(lat_ms[min(len(lat_ms) - 1, int(len(lat_ms) * 0.99))])
+
+    sync()
+    torch_peak0 = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    t1 = time.perf_counter()
+    batch.run(2 * ticks)
+    sync()
+    run_s = time.perf_counter() - t1
+    room_ticks = n_rooms * 2 * ticks / run_s
+
+    train = {}
+    if train_k > 1:
+        n_train = 2 * ticks
+        d0 = batch.train_dispatches
+        t1 = time.perf_counter()
+        lanes = batch.train(n_train)
+        train_s = time.perf_counter() - t1
+        dispatches = batch.train_dispatches - d0
+        train = {
+            "tick_train": train_k,
+            "train_ticks_timed": n_train,
+            "train_tick_ms": round(train_s * 1e3 / n_train, 3),
+            "train_room_ticks_per_sec": round(n_rooms * n_train / train_s, 1),
+            "train_dispatches": dispatches,
+            "train_dispatch_gate": dispatches == n_train // train_k,
+            "train_rows": int(lanes.shape[0]),
+            "train_fetch_bytes": batch.train_fetch_bytes,
+        }
+
+    def rows():
+        return int(batch.state.classes["NPC"].alive[used].sum())
+
+    before = rows()
+    rng = np.random.default_rng(args.seed)
+    for _ in range(int(args.rooms_churn)):
+        src = used.pop(int(rng.integers(0, len(used))))
+        dst = packer.alloc()
+        batch.rehome(src, dst)
+        packer.free(src)
+        used.append(dst)
+    dropped = before - rows()
+    unexplained = batch.costbook.unexplained_since(mark)
+    launches = batch.costbook.launches_per_replay("rooms.run")
+    point = {
+        "rooms": n_rooms,
+        "rooms_admitted": len(used),
+        "entities_per_room": seeded,
+        "build_wall_s": round(build_s, 2),
+        "admit_wall_s": round(admit_s, 2),
+        "admit_ms_per_room": round(admit_s * 1e3 / n_rooms, 3),
+        "tick_p50_ms": round(p50, 3),
+        "tick_p99_ms": round(p99, 3),
+        "run_tick_ms": round(run_s * 1e3 / (2 * ticks), 3),
+        "room_ticks_per_sec": round(room_ticks, 1),
+        "entity_ticks_per_sec": round(room_ticks * seeded, 1),
+        "counters_sample": {k: int(np.asarray(v).sum()) for k, v in counters.items()},
+        "rehomed": int(args.rooms_churn),
+        "dropped_rows": int(dropped),
+        "unexplained_recompiles": len(unexplained),
+        "launches_per_tick": launches,
+        "graph": bool(batch.costbook.entries["rooms.run"].last.get("graph")),
+        **train,
+    }
+
+    # digest parity: a fresh train batch against a fresh ticking one, 120
+    # ticks, every room's digest lane; after the gates, since
+    # enable_digest() is a sanctioned re-capture
+    if train_k > 1:
+        w.kernel.enable_digest()
+
+        def parity_batch():
+            pb = RoomBatch(w.kernel, n_rooms)
+            pk = RoomBinPacker(pb.capacity)
+            for i in range(n_rooms):
+                pb.admit(pk.alloc(), room_of(i))
+            return pb
+
+        pb_t = parity_batch()
+        pb_t.configure_train(train_k)
+        p_ticks = 120
+        lanes_p = pb_t.train(p_ticks)
+        del pb_t
+        pb_c = parity_batch()
+        ok = True
+        for i in range(p_ticks):
+            c = w.kernel.decode_counters(lanes_p[i])
+            ctl = pb_c.tick()
+            if not (np.array_equal(c["state_digest"], ctl["state_digest"])
+                    and np.array_equal(c["tick"], ctl["tick"])):
+                ok = False
+                break
+        point.update(digest_parity_ticks=p_ticks, digest_parity=ok)
+        del pb_c
+    point["costbook"] = costbook_detail(batch.costbook, device)
+    if device.type == "cuda":
+        point["peak_mem_bytes"] = max(torch_peak0, torch.cuda.max_memory_allocated(device))
+    return point
+
+
+def run_rooms(args, device: torch.device) -> dict:
+    """The many-worlds rooms ladder on one device (``run_rooms``)."""
+    import gc
+
+    sync: Callable[[], None] = (
+        (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None))
+    counts = [int(x) for x in args.rooms_count.split(",")]
+    train_k = int(args.train or 0)
+    points = []
+    for n in counts:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        points.append(_rooms_point(args, device, n, sync))
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    head = points[-1]
+    detail = {
+        "seed": args.seed,
+        "device": str(device),
+        "platform": "gpu" if device.type == "cuda" else "cpu",
+        "ticks_timed": int(args.rooms_ticks),
+        "tick_train": train_k,
+        "binning": binning_mode(),
+        "all_gates": all(
+            p["dropped_rows"] == 0 and p["unexplained_recompiles"] == 0
+            and p.get("train_dispatch_gate", True) and p.get("digest_parity", True)
+            for p in points),
+        "launches_per_tick": head["launches_per_tick"],
+        "points": points,
+    }
+    if device.type == "cuda":
+        detail.update(card_identity())
+        detail["peak_mem_bytes"] = max(p["peak_mem_bytes"] for p in points)
+    return {
+        "metric": ("rooms_train_room_ticks_per_sec" if train_k > 1
+                   else "rooms_room_ticks_per_sec"),
+        "value": head["train_room_ticks_per_sec"] if train_k > 1 else head["room_ticks_per_sec"],
+        "unit": "room-ticks/s",
+        "detail": detail,
+    }
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m noahgameframe_tpu_torch.bench")
     ap.add_argument("--entities", type=int, default=1_000_000)
@@ -240,6 +453,17 @@ def parse_args(argv=None):
     ap.add_argument("--no-combat", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs only when asked for by name")
+    ap.add_argument("--rooms", action="store_true",
+                    help="run the many-worlds rooms ladder instead of the world tick")
+    ap.add_argument("--rooms-count", default="256,4096,16384", metavar="R,R,...",
+                    help="rooms ladder rungs (rooms per batch)")
+    ap.add_argument("--rooms-entities", type=int, default=64,
+                    help="per-room NPC capacity (half of it seeded live)")
+    ap.add_argument("--rooms-ticks", type=int, default=30,
+                    help="individually timed batch ticks per rung (the fused "
+                         "window runs 2x this)")
+    ap.add_argument("--rooms-churn", type=int, default=8,
+                    help="re-homes rotated through the spare slot per rung")
     return ap.parse_args(argv)
 
 
@@ -250,7 +474,8 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"bench: error: {e}", file=sys.stderr)
         return 2
-    print(json.dumps(run_bench(args, device)), flush=True)
+    run = run_rooms if args.rooms else run_bench
+    print(json.dumps(run(args, device)), flush=True)
     return 0
 
 

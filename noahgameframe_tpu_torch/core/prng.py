@@ -84,8 +84,10 @@ def uniform(
 ) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
     bits = random_bits(key, shape)
-    mantissa = (bits >> 9) | 0x3F800000  # exponent of 1.0, 23 random bits
-    floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
+    # jax: bitcast(0x3F800000 | bits >> 9) - 1.0, a float in [1, 2) minus
+    # one; exactly the 23 random bits times 2^-23 (no bit view, so it
+    # batches under torch.func.vmap)
+    floats = (bits >> 9).to(torch.float32) * 2.0 ** -23
     lo = np.float32(minval)
     span = np.float32(maxval) - lo  # computed in float32, as jax does
     return torch.clamp(floats * float(span) + float(lo), min=float(lo))

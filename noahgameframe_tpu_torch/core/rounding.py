@@ -22,9 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_F32_DROPPED_BITS = 29  # float64 fraction bits below a float32's 23
-_LOW = (1 << _F32_DROPPED_BITS) - 1
-_HALF = 1 << (_F32_DROPPED_BITS - 1)
+# Veltkamp's splitting constant 2^28 + 1: (k - (k - s)) with k = s * it is
+# s rounded to 53 - 28 = 25 significant bits
+_SPLIT25 = float((1 << 28) + 1)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -32,19 +32,27 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
     The product is exact in float64 and TwoSum gives the exact error of
     the float64 sum, so the only wrong rounding left is a float64 sum on
-    an exact float32 midpoint with a non-zero error; that sum is moved one
-    float64 step towards the error before the final rounding.  Exact for
-    results in float32's normal range (the world's distances and
-    positions never reach the subnormals)."""
+    an exact float32 midpoint with a non-zero error: the true value lies
+    beyond the midpoint on the error's side.  Exact for results in
+    float32's normal range (the world's distances and positions never
+    reach the subnormals).
+
+    The midpoint is found in plain arithmetic, so the test batches under
+    ``torch.func.vmap`` (the rooms) on every torch: a float64 with 25
+    significant bits, the last one set, is such a midpoint, and the float32
+    neighbour on the error's side is taken."""
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
     bp = s - p
     err = (p - (s - bp)) + (cd - bp)  # p + cd == s + err exactly
-    tie = (s.view(torch.int64) & _LOW) == _HALF
-    toward = torch.where(err > 0, float("inf"), float("-inf"))
-    s = torch.where(tie & (err != 0), torch.nextafter(s, toward.to(s.dtype)), s)
-    return s.float()
+    f = s.float()  # round to nearest, ties to even
+    fd = f.double()
+    k = s * _SPLIT25
+    tie = ((k - (k - s)) == s) & (fd != s) & (err != 0)
+    other = (2.0 * s - fd).float()  # the midpoint's other float32 neighbour
+    beyond = torch.where(err > 0, torch.maximum(f, other), torch.minimum(f, other))
+    return torch.where(tie, beyond, f)
 
 
 def recip32(c: float) -> float:

@@ -127,6 +127,23 @@ _RECORD_LEAVES = ("i32", "f32", "vec", "used")
 _CLASS_LEAVES = ("i32", "f32", "vec", "alive")
 
 
+def _cpu(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _classes_to_numpy(state: WorldState) -> Dict[str, Any]:
+    classes = {}
+    for cname, cs in state.classes.items():
+        d = {k: _cpu(getattr(cs, k)) for k in _CLASS_LEAVES}
+        d["timers"] = {k: _cpu(getattr(cs.timers, k)) for k in _TIMER_LEAVES}
+        d["records"] = {
+            r: {k: _cpu(getattr(rec, k)) for k in _RECORD_LEAVES}
+            for r, rec in cs.records.items()
+        }
+        classes[cname] = d
+    return classes
+
+
 def state_to_numpy(state: WorldState) -> Dict[str, Any]:
     """The world's leaves as nested dicts of numpy arrays, with the JAX
     package's dtypes (the key as uint32 words)::
@@ -136,35 +153,25 @@ def state_to_numpy(state: WorldState) -> Dict[str, Any]:
             "timers": {"next_fire", "interval", "remain", "active"},
             "records": {rname: {"i32", "f32", "vec", "used"}}}}}
     """
-
-    def cpu(t):
-        return t.detach().cpu().numpy()
-
-    classes = {}
-    for cname, cs in state.classes.items():
-        d = {k: cpu(getattr(cs, k)) for k in _CLASS_LEAVES}
-        d["timers"] = {k: cpu(getattr(cs.timers, k)) for k in _TIMER_LEAVES}
-        d["records"] = {
-            r: {k: cpu(getattr(rec, k)) for k in _RECORD_LEAVES}
-            for r, rec in cs.records.items()
-        }
-        classes[cname] = d
     return {
-        "tick": np.int32(cpu(state.tick)),
-        "rng": cpu(state.rng).astype(np.uint32),
-        "classes": classes,
+        "tick": np.int32(_cpu(state.tick)),
+        "rng": _cpu(state.rng).astype(np.uint32),
+        "classes": _classes_to_numpy(state),
     }
 
 
-def state_from_numpy(tree: Dict[str, Any], device=None) -> WorldState:
-    """Inverse of :func:`state_to_numpy`: build a WorldState on ``device``
-    (``None`` = ``"cuda"``) from nested dicts of numpy arrays, e.g. a JAX
-    world's leaves."""
-    device = resolve_device(device)
+def rooms_to_numpy(state: WorldState) -> Dict[str, Any]:
+    """:func:`state_to_numpy` of a room batch's state (parallel/rooms.py
+    ``RoomBatch.state``): every leaf keeps its leading ``[R]`` room axis
+    (``tick`` int32 [R], ``rng`` uint32 [R, 2]); aux is left out."""
+    return {
+        "tick": _cpu(state.tick).astype(np.int32),
+        "rng": _cpu(state.rng).astype(np.uint32),
+        "classes": _classes_to_numpy(state),
+    }
 
-    def dev(a):
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
 
+def _classes_from_numpy(tree: Dict[str, Any], dev) -> Dict[str, ClassState]:
     classes = {}
     for cname, d in tree["classes"].items():
         classes[cname] = ClassState(
@@ -175,10 +182,39 @@ def state_from_numpy(tree: Dict[str, Any], device=None) -> WorldState:
                 for r, rd in d["records"].items()
             },
         )
+    return classes
+
+
+def _device_copier(device):
+    def dev(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    return dev
+
+
+def state_from_numpy(tree: Dict[str, Any], device=None) -> WorldState:
+    """Inverse of :func:`state_to_numpy`: build a WorldState on ``device``
+    (``None`` = ``"cuda"``) from nested dicts of numpy arrays, e.g. a JAX
+    world's leaves."""
+    dev = _device_copier(resolve_device(device))
     rng = np.asarray(tree["rng"]).astype(np.int64) & MASK32
     return WorldState(
-        classes=classes,
+        classes=_classes_from_numpy(tree, dev),
         tick=dev(np.asarray(tree["tick"], np.int32)).reshape(()),
+        rng=dev(rng),
+    )
+
+
+def rooms_from_numpy(tree: Dict[str, Any], device=None) -> WorldState:
+    """Inverse of :func:`rooms_to_numpy`: a room batch's state on ``device``
+    (``None`` = ``"cuda"``) from nested dicts of numpy arrays with a leading
+    ``[R]`` axis, e.g. the leaves of the JAX package's ``RoomBatch.state``.
+    Its aux is empty: ``RoomBatch.load_state`` supplies fresh caches."""
+    dev = _device_copier(resolve_device(device))
+    rng = np.asarray(tree["rng"]).astype(np.int64) & MASK32
+    return WorldState(
+        classes=_classes_from_numpy(tree, dev),
+        tick=dev(np.asarray(tree["tick"], np.int32)).reshape(-1),
         rng=dev(rng),
     )
 

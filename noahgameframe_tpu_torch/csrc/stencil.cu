@@ -274,22 +274,42 @@ __device__ __forceinline__ char* band_row(char* base, long long seg, const void*
   return base + r * seg + (int)((uintptr_t)band_src(g, yy, W, x_first, K, esz) & 15);
 }
 
-// The tile (y0, x0) of block b: tiles of ty x tx cells in row-major order
-// over a grid of ceil(W / tx) tile columns (ops/stencil_cuda.py FoldPlan).
-__device__ __forceinline__ void tile_origin(int W, int ty, int tx, int& y0, int& x0) {
+// The tile (y0, x0) of block b of a room: tiles of ty x tx cells in
+// row-major order over a grid of ceil(W / tx) tile columns
+// (ops/stencil_cuda.py FoldPlan).
+__device__ __forceinline__ void tile_origin(int W, int ty, int tx, int b, int& y0, int& x0) {
   const int gx = (W + tx - 1) / tx;
-  const int b = blockIdx.x;
   y0 = (b / gx) * ty;
   x0 = (b % gx) * tx;
 }
 
+// The room axis.  A launch covers R rooms of the same geometry, each a
+// contiguous stretch of every table and output: the grid is R x the
+// room's blocks, block `blockIdx.x` works on room blockIdx.x / per_room,
+// and every pointer is moved to that room before the block reads or
+// writes anything.  Nothing else changes: a halo cell outside the room's
+// H x W grid is empty, as at a single grid's edge, so a block never reads
+// another room's rows (nor its dump slot).  One world is R = 1.
+__device__ __forceinline__ int room_block(int per_room, int& b) {
+  const int room = (int)(blockIdx.x / (unsigned)per_room);
+  b = (int)blockIdx.x - room * per_room;
+  return room;
+}
+
 __global__ void __launch_bounds__(NF_MAX_THREADS, NF_COMBAT_MIN_BLOCKS)
     combat_fold_kernel(const float* __restrict__ vic, const float* __restrict__ att, int H,
-                       int W, int Kv, int Ka, float r2, int ty, int tx,
+                       int W, int Kv, int Ka, float r2, int ty, int tx, int per_room,
                        int* __restrict__ inc_out, int* __restrict__ bestr_out) {
   extern __shared__ __align__(16) unsigned char nf_smem[];
   char* smem = (char*)nf_smem;
   const FoldTile L(ty, tx, Kv, Ka);
+  int blk;
+  const long long room = room_block(per_room, blk);
+  const long long cells = (long long)H * W;
+  vic += room * (cells * Kv + 1) * 6;
+  att += room * (cells * Ka + 1) * 8;
+  inc_out += room * cells * Kv;
+  bestr_out += room * cells * Kv;
   int* count = (int*)(smem + L.count);
   int* mask = (int*)(smem + L.mask);
   int* flag = (int*)(smem + L.flag);
@@ -298,7 +318,7 @@ __global__ void __launch_bounds__(NF_MAX_THREADS, NF_COMBAT_MIN_BLOCKS)
   const int hxn = tx + 2, nh = (ty + 2) * hxn, ncell = ty * tx;
   const FastDiv by_kv(Kv), by_tx(tx);
   int y0, x0;
-  tile_origin(W, ty, tx, y0, x0);
+  tile_origin(W, ty, tx, blk, y0, x0);
 
   // 1. stage the tile's attacker halo (8 floats a slot) with asynchronous
   // copies
@@ -419,7 +439,14 @@ __global__ void __launch_bounds__(NF_MAX_THREADS)
                              int H, int W, int Kv, int Ka, float r2, int chunk,
                              int* __restrict__ inc_out, int* __restrict__ bestr_out) {
   extern __shared__ __align__(16) unsigned char nf_smem[];
-  const long long cell = blockIdx.x;
+  int blk;
+  const long long room = room_block(H * W, blk);
+  const long long cells = (long long)H * W;
+  vic += room * (cells * Kv + 1) * 6;
+  att += room * (cells * Ka + 1) * 8;
+  inc_out += room * cells * Kv;
+  bestr_out += room * cells * Kv;
+  const long long cell = blk;
   const int y = (int)(cell / W), x = (int)(cell % W);
   const int tid = threadIdx.x, nthr = blockDim.x;
   for (int vb = 0; vb < Kv; vb += nthr) {
@@ -535,11 +562,21 @@ __device__ __forceinline__ void fused_fold_one(const FusedLists& F, int cy, int 
 __global__ void __launch_bounds__(NF_MAX_THREADS)
     fused_neighborhood_kernel(const float* __restrict__ bank, const int* __restrict__ vtab,
                               const int* __restrict__ atab, int H, int W, int Kv, int Ka,
-                              float r2, int ty, int tx, int* __restrict__ inc_out,
-                              int* __restrict__ bestr_out, int* __restrict__ nbr_out) {
+                              float r2, int ty, int tx, int per_room, int N,
+                              int* __restrict__ inc_out, int* __restrict__ bestr_out,
+                              int* __restrict__ nbr_out) {
   extern __shared__ __align__(16) unsigned char nf_smem[];
   char* smem = (char*)nf_smem;
   const FusedTile L(ty, tx, Kv, Ka);
+  int blk;
+  const long long room = room_block(per_room, blk);
+  const long long cells = (long long)H * W;
+  bank += room * N * 6;
+  vtab += room * cells * Kv;
+  atab += room * cells * Ka;
+  inc_out += room * cells * Kv;
+  bestr_out += room * cells * Kv;
+  nbr_out += room * cells * Kv;
   float4* vent4 = (float4*)(smem + L.vent4);
   float4* aent4 = (float4*)(smem + L.aent4);
   float2* aent2 = (float2*)(smem + L.aent2);
@@ -555,7 +592,7 @@ __global__ void __launch_bounds__(NF_MAX_THREADS)
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   int y0, x0;
-  tile_origin(W, ty, tx, y0, x0);
+  tile_origin(W, ty, tx, blk, y0, x0);
   const int hxn = tx + 2, nh = (ty + 2) * hxn, ncell = ty * tx;
   const int rowcap = hxn * Kv, as = list_stride(Ka);
 
@@ -774,13 +811,23 @@ __global__ void __launch_bounds__(NF_MAX_THREADS)
     fused_neighborhood_chunk_kernel(const float* __restrict__ bank,
                                     const int* __restrict__ vtab,
                                     const int* __restrict__ atab, int H, int W, int Kv,
-                                    int Ka, float r2, int chunk, int* __restrict__ inc_out,
-                                    int* __restrict__ bestr_out, int* __restrict__ nbr_out) {
+                                    int Ka, float r2, int chunk, int N,
+                                    int* __restrict__ inc_out, int* __restrict__ bestr_out,
+                                    int* __restrict__ nbr_out) {
   extern __shared__ __align__(16) unsigned char nf_smem[];
   float4* e4 = (float4*)nf_smem;
   float2* e2 = (float2*)(nf_smem + (long long)chunk * 16);
   int* er = (int*)(nf_smem + (long long)chunk * 24);
-  const long long cell = blockIdx.x;
+  int blk;
+  const long long room = room_block(H * W, blk);
+  const long long cells = (long long)H * W;
+  bank += room * N * 6;
+  vtab += room * cells * Kv;
+  atab += room * cells * Ka;
+  inc_out += room * cells * Kv;
+  bestr_out += room * cells * Kv;
+  nbr_out += room * cells * Kv;
+  const long long cell = blk;
   const int y = (int)(cell / W), x = (int)(cell % W);
   const int tid = threadIdx.x, nthr = blockDim.x;
   for (int vb = 0; vb < Kv; vb += nthr) {
@@ -852,15 +899,19 @@ __global__ void __launch_bounds__(NF_MAX_THREADS)
 }
 
 // Both row tables from the slot assignments, after the caller zeroed them:
-// table[slot_of[i]] = i + 1 for each placed row (slots below the dump).
+// table[slot_of[i]] = i + 1 for each placed row (slots below the dump),
+// room by room: entry i of the [R, n] assignments is row i % n of room
+// i / n, and writes into that room's [vdump] / [adump] table.
 __global__ void slot_rows_kernel(const int* __restrict__ vslot, const int* __restrict__ aslot,
-                                 int n, long long vdump, long long adump,
+                                 long long total, int n, long long vdump, long long adump,
                                  int* __restrict__ vtab, int* __restrict__ atab) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long room = i / n;
+  const int row = (int)(i - room * n);
   const int vs = vslot[i], as = aslot[i];
-  if (vs >= 0 && vs < vdump) vtab[vs] = i + 1;
-  if (as >= 0 && as < adump) atab[as] = i + 1;
+  if (vs >= 0 && vs < vdump) vtab[room * vdump + vs] = row + 1;
+  if (as >= 0 && as < adump) atab[room * adump + as] = row + 1;
 }
 
 // Raise a kernel's dynamic shared-memory ceiling once per device.
@@ -891,18 +942,28 @@ long long check_plan(int H, int W, int ty, int tx, int threads, long long smem,
   return (long long)((H + ty - 1) / ty) * ((W + tx - 1) / tx);
 }
 
+// The blocks of a launch over R rooms of `per_room` blocks each, or -1
+// when they are more than one grid dimension holds (2^31 - 1).
+long long room_blocks(int R, long long per_room) {
+  if (R < 0 || per_room <= 0) return -1;
+  const long long blocks = (long long)R * per_room;
+  return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
 }  // namespace
 
-// Each entry point launches on the given stream and returns
+// Each entry point launches on the given stream over R rooms of one
+// geometry laid out back to back (R = 1: one world) and returns
 // cudaGetLastError() (0 on success); it never synchronises.
 
-extern "C" int nf_combat_fold(const float* vic, const float* att, int H, int W, int Kv, int Ka,
-                              float r2, int ty, int tx, int threads, int smem, int chunk,
+extern "C" int nf_combat_fold(const float* vic, const float* att, int R, int H, int W, int Kv,
+                              int Ka, float r2, int ty, int tx, int threads, int smem, int chunk,
                               int* inc, int* bestr, void* stream) {
-  if ((long long)H * W * Kv == 0) return 0;
+  if ((long long)R * H * W * Kv == 0) return 0;
   const long long need = chunk > 0 ? (long long)chunk * 32 + 16 : FoldTile(ty, tx, Kv, Ka).bytes;
-  const long long blocks = check_plan(H, W, ty, tx, threads, smem, need, chunk);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const long long per_room = check_plan(H, W, ty, tx, threads, smem, need, chunk);
+  const long long blocks = room_blocks(R, per_room);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (chunk > 0) {
@@ -914,44 +975,49 @@ extern "C" int nf_combat_fold(const float* vic, const float* att, int H, int W, 
     err = allow_smem((const void*)combat_fold_kernel, smem, g_combat_tile_smem);
     if (err != cudaSuccess) return (int)err;
     combat_fold_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-        vic, att, H, W, Kv, Ka, r2, ty, tx, inc, bestr);
+        vic, att, H, W, Kv, Ka, r2, ty, tx, (int)per_room, inc, bestr);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int nf_slot_rows(const int* vslot, const int* aslot, int n, long long vdump,
+extern "C" int nf_slot_rows(const int* vslot, const int* aslot, int R, int n, long long vdump,
                             long long adump, int* vtab, int* atab, void* stream) {
+  if (R < 0 || n < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(vtab, 0, (size_t)vdump * 4, st);
-  if (err == cudaSuccess) err = cudaMemsetAsync(atab, 0, (size_t)adump * 4, st);
+  cudaError_t err = cudaMemsetAsync(vtab, 0, (size_t)R * vdump * 4, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(atab, 0, (size_t)R * adump * 4, st);
   if (err != cudaSuccess) return (int)err;
-  if (n > 0) {
-    const int blocks = (n + 255) / 256;
-    slot_rows_kernel<<<blocks, 256, 0, st>>>(vslot, aslot, n, vdump, adump, vtab, atab);
+  const long long total = (long long)R * n;
+  if (total > 0) {
+    const long long blocks = room_blocks(1, (total + 255) / 256);
+    if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+    slot_rows_kernel<<<(unsigned)blocks, 256, 0, st>>>(vslot, aslot, total, n, vdump, adump,
+                                                        vtab, atab);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int nf_fused_neighborhood(const float* bank, const int* vtab, const int* atab,
-                                     int H, int W, int Kv, int Ka, float r2, int ty, int tx,
-                                     int threads, int smem, int chunk, int* inc, int* bestr,
-                                     int* nbr, void* stream) {
-  if ((long long)H * W * Kv == 0) return 0;
+                                     int R, int N, int H, int W, int Kv, int Ka, float r2,
+                                     int ty, int tx, int threads, int smem, int chunk, int* inc,
+                                     int* bestr, int* nbr, void* stream) {
+  if ((long long)R * H * W * Kv == 0) return 0;
   const long long need = chunk > 0 ? (long long)chunk * 28 : FusedTile(ty, tx, Kv, Ka).bytes;
-  const long long blocks = check_plan(H, W, ty, tx, threads, smem, need, chunk);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const long long per_room = check_plan(H, W, ty, tx, threads, smem, need, chunk);
+  const long long blocks = room_blocks(R, per_room);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (chunk > 0) {
     err = allow_smem((const void*)fused_neighborhood_chunk_kernel, smem, g_fused_chunk_smem);
     if (err != cudaSuccess) return (int)err;
     fused_neighborhood_chunk_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-        bank, vtab, atab, H, W, Kv, Ka, r2, chunk, inc, bestr, nbr);
+        bank, vtab, atab, H, W, Kv, Ka, r2, chunk, N, inc, bestr, nbr);
   } else {
     err = allow_smem((const void*)fused_neighborhood_kernel, smem, g_fused_tile_smem);
     if (err != cudaSuccess) return (int)err;
     fused_neighborhood_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-        bank, vtab, atab, H, W, Kv, Ka, r2, ty, tx, inc, bestr, nbr);
+        bank, vtab, atab, H, W, Kv, Ka, r2, ty, tx, (int)per_room, N, inc, bestr, nbr);
   }
   return (int)cudaGetLastError();
 }

@@ -271,8 +271,10 @@ class CombatModule(Module):
         else:
             fold = combat_fold if engine == 1 else combat_fold_plain
             inc, bestr = fold(vic_bin, att_bin, self.radius)
-        mask0 = torch.zeros((n,), dtype=torch.bool, device=pos.device)
-        mask0[0] = (vic_bin.dropped + att_bin.dropped) > 0
+        # row 0 carries the overflow flag; padded out of place, so it
+        # batches under torch.func.vmap
+        mask0 = torch.nn.functional.pad(
+            ((vic_bin.dropped + att_bin.dropped) > 0).reshape(1), (0, n - 1))
         ctx.emit(
             int(GameEvent.ON_COMBAT_TABLE_OVERFLOW), cname, mask0,
             dropped_victims=vic_bin.dropped.expand(n),

@@ -135,23 +135,34 @@ def _digest_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fold(acc: torch.Tensor, arr: torch.Tensor) -> torch.Tensor:
-    """``acc * MULT + sum(u32(x_i) * (2i + 1))``, all mod 2^32."""
-    x = _digest_u32(arr).reshape(-1)
-    total = torch.zeros((), dtype=torch.int64, device=acc.device)
-    for start in range(0, x.numel(), _DIGEST_CHUNK):
-        part = x[start:start + _DIGEST_CHUNK]
-        w = torch.arange(start, start + part.numel(), dtype=torch.int64,
+    """``acc * MULT + sum(u32(x_i) * (2i + 1))``, all mod 2^32, per row of
+    ``acc``'s shape: ``acc`` 0-dim folds all of ``arr``, ``acc`` [R] folds
+    each room of ``arr`` [R, ...] apart."""
+    lead = acc.shape
+    x = _digest_u32(arr).reshape(*lead, -1)
+    cols = x.shape[-1]
+    step = max(1, _DIGEST_CHUNK // max(1, acc.numel()))
+    total = torch.zeros(lead, dtype=torch.int64, device=acc.device)
+    for start in range(0, cols, step):
+        part = x[..., start:start + step]
+        w = torch.arange(start, start + part.shape[-1], dtype=torch.int64,
                          device=acc.device) * 2 + 1
-        total = (total + ((part * w) & MASK32).sum()) & MASK32
+        total = (total + ((part * w) & MASK32).sum(-1)) & MASK32
     return (acc * _DIGEST_MULT + total) & MASK32
 
 
-def state_digest(state: WorldState, class_order: Sequence[str]) -> torch.Tensor:
+def state_digest(state: WorldState, class_order: Sequence[str],
+                 rooms: bool = False) -> torch.Tensor:
     """One uint32 digest of the whole world (int64 0-dim tensor), equal to
     the JAX package's ``state_digest`` of the same state: position-weighted
     modular sums per bank, folded across banks with a rolling multiply.
-    ``WorldState.aux`` is excluded, as there."""
-    acc = torch.full((), _DIGEST_SEED, dtype=torch.int64, device=state.tick.device)
+    ``WorldState.aux`` is excluded, as there.  ``rooms=True`` takes a
+    batch of rooms (every leaf with a leading room axis, parallel/rooms.py)
+    and returns each room's digest ([R] int64); the room axis is written
+    out rather than vmapped, because reading a float32 bank's bits is a
+    dtype view, which ``torch.func.vmap`` does not batch on every torch."""
+    lead = tuple(state.tick.shape) if rooms else ()
+    acc = torch.full(lead, _DIGEST_SEED, dtype=torch.int64, device=state.tick.device)
     acc = _fold(acc, state.tick)
     acc = _fold(acc, state.rng)
     for cname in class_order:
@@ -269,12 +280,17 @@ class Kernel(Module):
         self.train_dispatches = 0
         self.train_ticks = 0
         self.train_fetch_bytes = 0
+        # bumped whenever the captured tick is dropped (invalidate,
+        # set_phases), so a wrapper that captures its own variants of the
+        # step (parallel/rooms.py RoomBatch) drops them too
+        self._trace_gen = 0
         # module-registered carried tick state (WorldState.aux): name ->
         # zero-arg init fn, primed right before a dispatch and dropped by
         # invalidate() (aux layouts bake geometry such as buckets)
         self._aux_init: Dict[str, Callable[[], Any]] = {}
         # host metadata of the last step: counter and event names
         self._counter_names: Tuple[str, ...] = ()
+        self._summary_len = 0
         self._event_meta: List[Tuple[int, str, Tuple[str, ...]]] = []
         self.tick_count = 0
         self.last_counters: Dict[str, int] = {}
@@ -314,6 +330,7 @@ class Kernel(Module):
         """Replace the composed phase chain (drops every captured graph)."""
         self._composed = sorted(phases, key=lambda p: p.order)
         self._step_fn = self._run_fn = self._train_fn = None
+        self._trace_gen += 1
         self.costbook.generation_bump("set_phases")
 
     # -- captures, invalidation and carried aux state -------------------------
@@ -342,6 +359,7 @@ class Kernel(Module):
         self._step_fn = None
         self._run_fn = None
         self._train_fn = None
+        self._trace_gen += 1
         self.costbook.generation_bump("invalidate")
         if self._aux_init and self.state is not None and self.state.aux:
             kept = {k: v for k, v in self.state.aux.items() if k not in self._aux_init}
@@ -378,11 +396,13 @@ class Kernel(Module):
 
     # -- the tick ------------------------------------------------------------
 
-    def _step(self, state: WorldState, observe: bool = True):
+    def _step(self, state: WorldState, observe: bool = True, digest_in_step: bool = True):
         """One frame: ``(state', raw)``.  ``raw`` is the dict of per-tick
         lanes (TRAIN_LANE_SPEC) of an observed step; with ``observe=False``
         (run_device) it is None, as XLA drops those outputs from the JAX
-        package's fused run loop."""
+        package's fused run loop.  ``digest_in_step=False`` leaves the
+        ``state_digest`` lane 0 for the caller to fill (the rooms engine
+        digests all rooms at once, outside its vmapped step)."""
         old = state
         fired: Dict[str, torch.Tensor] = {}
         new_classes = {}
@@ -438,8 +458,10 @@ class Kernel(Module):
         if self.digest_enabled:
             counters["state_digest"] = _as_int32(
                 state_digest(state, self.store.class_order)
-            )
+            ) if digest_in_step else zero
         self._counter_names = tuple(sorted(counters))
+        self._summary_len = (len(self.store.class_order) + len(diff_count) + len(ev_counts)
+                             + len(self._counter_names))
         # ONE packed int32 vector per tick: deaths per class, diff cells per
         # class (sorted), event counts, then the counter bank in name order
         summary = torch.stack(
@@ -497,6 +519,10 @@ class Kernel(Module):
         with self._span("kernel.post_tick"):
             self._post_tick(out, summary)
         return out
+
+    def summary_lane(self, name: str) -> int:
+        """The index of counter ``name`` in the summary vector."""
+        return self._summary_len - len(self._counter_names) + self._counter_names.index(name)
 
     def decode_counters(self, summary) -> Dict[str, np.ndarray]:
         """The named counter bank off a summary's tail (the last

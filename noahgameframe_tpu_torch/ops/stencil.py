@@ -140,12 +140,14 @@ def _sorted_segments(pos, active, cell_size: float, width: int):
     return n_cells, order, skey, head, rank
 
 
-def _slots_from_ranks(n: int, n_cells: int, order, skey, rank, bucket: int):
-    """Un-sort ``skey * bucket + rank`` back to row order (one scatter)."""
+def _slots_from_ranks(n_cells: int, order, skey, rank, bucket: int):
+    """Un-sort ``skey * bucket + rank`` back to row order (one scatter into
+    a ``full_like`` of the sorted slots: under ``torch.func.vmap`` it
+    carries their room axis, so the scatter batches)."""
     dump = n_cells * bucket
     placed = (rank < bucket) & (skey < n_cells)
     flat_sorted = torch.where(placed, skey * bucket + rank, dump).to(torch.int32)
-    slot_of = torch.full((n,), dump, dtype=torch.int32, device=skey.device)
+    slot_of = torch.full_like(flat_sorted, dump)
     slot_of[order] = flat_sorted
     return slot_of
 
@@ -181,8 +183,9 @@ def table_from_slots(features, active, slot_of, n_cells: int, cell_size: float,
     slot_of = torch.where(active, slot_of, dump).to(torch.int32)
     feats = torch.cat([features, torch.ones((n, 1), dtype=features.dtype,
                                             device=features.device)], dim=-1)
-    payload = torch.zeros((dump + 1, feats.shape[-1]), dtype=features.dtype,
-                          device=features.device)
+    # new_zeros of the features: under torch.func.vmap it carries their
+    # room axis, so the in-place scatter below batches
+    payload = feats.new_zeros((dump + 1, feats.shape[-1]))
     payload[slot_of.long()] = feats
     # the dump slot may have been written by any loser; force it empty
     payload[dump] = 0.0
@@ -194,7 +197,7 @@ def _cell_counts(key: torch.Tensor, n_cells: int) -> torch.Tensor:
     """[n_cells + 1] int32 occupancy per cell; the last bin counts the
     inactive rows (key == n_cells)."""
     counts = torch.zeros((n_cells + 1,), dtype=torch.int32, device=key.device)
-    return counts.scatter_add_(0, key.long(), torch.ones_like(key, dtype=torch.int32))
+    return counts.scatter_add(0, key.long(), torch.ones_like(key, dtype=torch.int32))
 
 
 def _counting_ranks(key: torch.Tensor, n_cells: int, kmax: int) -> torch.Tensor:
@@ -211,8 +214,8 @@ def _counting_ranks(key: torch.Tensor, n_cells: int, kmax: int) -> torch.Tensor:
                             sentinel)
     rank = torch.full((n,), kmax, dtype=torch.int32, device=dev)
     for r in range(kmax):
-        win = torch.full((n_cells + 1,), sentinel, dtype=torch.int32, device=dev)
-        win.scatter_reduce_(0, idx, remaining, "amin")
+        win = torch.full((n_cells + 1,), sentinel, dtype=torch.int32,
+                         device=dev).scatter_reduce(0, idx, remaining, "amin")
         # the `< sentinel` guard keeps the retired rows of an exhausted
         # cell (win == sentinel) from matching
         is_win = (remaining < sentinel) & (remaining == win[idx])
@@ -232,7 +235,6 @@ def _pair_slots(pos, active, sub_mask, cell_size: float, width: int, bucket: int
                 sub_bucket: int):
     """The two slot assignments (full population, subset) under the
     ``NF_BINNING`` engine: ``(n_cells, slot_of, sub_slot_of)``."""
-    n = pos.shape[0]
     if binning_mode() == "count":
         n_cells, key = _cell_keys(pos, active, cell_size, width)
         sub_key = torch.where(sub_mask, key, n_cells)
@@ -240,8 +242,8 @@ def _pair_slots(pos, active, sub_mask, cell_size: float, width: int, bucket: int
                 _counting_slots(sub_key, n_cells, sub_bucket))
     n_cells, order, skey, head, rank = _sorted_segments(pos, active, cell_size, width)
     sub_rank = _subset_ranks(sub_mask, order, head, n_cells, sub_bucket)
-    return (n_cells, _slots_from_ranks(n, n_cells, order, skey, rank, bucket),
-            _slots_from_ranks(n, n_cells, order, skey, sub_rank, sub_bucket))
+    return (n_cells, _slots_from_ranks(n_cells, order, skey, rank, bucket),
+            _slots_from_ranks(n_cells, order, skey, sub_rank, sub_bucket))
 
 
 def build_cell_table(pos, active, features, cell_size: float, width: int,
@@ -253,7 +255,7 @@ def build_cell_table(pos, active, features, cell_size: float, width: int,
         slot_of = _counting_slots(key, n_cells, bucket)
     else:
         n_cells, order, skey, _head, rank = _sorted_segments(pos, active, cell_size, width)
-        slot_of = _slots_from_ranks(pos.shape[0], n_cells, order, skey, rank, bucket)
+        slot_of = _slots_from_ranks(n_cells, order, skey, rank, bucket)
     return table_from_slots(features, active, slot_of, n_cells, cell_size, width, bucket)
 
 

@@ -169,9 +169,9 @@ def slot_rows(slots: CellSlots, n: int) -> torch.Tensor:
     the sentinel ``n`` (a zero feature row)."""
     w, k = slots.width, slots.bucket
     dump = w * w * k
-    idx = torch.full((dump + 1,), n, dtype=torch.int32, device=slots.slot_of.device)
-    idx[slots.slot_of.long()] = torch.arange(
-        slots.slot_of.shape[0], dtype=torch.int32, device=idx.device)
+    dev = slots.slot_of.device
+    idx = torch.full((dump + 1,), n, dtype=torch.int32, device=dev).scatter(
+        0, slots.slot_of.long(), torch.arange(n, dtype=torch.int32, device=dev))
     return idx[:dump].reshape(w, w, k)
 
 
@@ -375,11 +375,12 @@ def library() -> ctypes.CDLL:
     BUILD_LOG = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(so))
     p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.nf_combat_fold.argtypes = [p, p, i, i, i, i, f, i, i, i, i, i, p, p, p]
+    lib.nf_combat_fold.argtypes = [p, p, i, i, i, i, i, f, i, i, i, i, i, p, p, p]
     lib.nf_combat_fold.restype = i
-    lib.nf_slot_rows.argtypes = [p, p, i, q, q, p, p, p]
+    lib.nf_slot_rows.argtypes = [p, p, i, i, q, q, p, p, p]
     lib.nf_slot_rows.restype = i
-    lib.nf_fused_neighborhood.argtypes = [p, p, p, i, i, i, i, f, i, i, i, i, i, p, p, p, p]
+    lib.nf_fused_neighborhood.argtypes = [p, p, p, i, i, i, i, i, i, f, i, i, i, i, i,
+                                          p, p, p, p]
     lib.nf_fused_neighborhood.restype = i
     lib.nf_error_string.argtypes = [i]
     lib.nf_error_string.restype = ctypes.c_char_p
@@ -419,15 +420,192 @@ def _plan_args(plan: FoldPlan):
     return plan.ty, plan.tx, plan.threads, plan.smem, plan.chunk
 
 
+# -- the custom ops ------------------------------------------------------------
+#
+# Each kernel is a torch.library custom op (nf::combat_fold,
+# nf::slot_rows, nf::fused_neighborhood) over plain tensors and the launch
+# plan's integers, with a fake (shape-only) version and a vmap rule.  The
+# op's own implementation launches one world (R = 1); under
+# torch.func.vmap the rule moves the room axis to the front, makes the
+# tensors contiguous and makes ONE launch for all R rooms (the grid holds
+# R x the room's blocks).  JAX batches a pallas_call under vmap by adding
+# a grid dimension; these rules are that dimension written out.  Only CUDA
+# tensors reach the ops: the wrappers below give the CPU the plain
+# versions, which batch under vmap on their own.
+
+
+def _room_front(x: torch.Tensor, dim: Optional[int], rooms: int) -> torch.Tensor:
+    """``x`` with its room axis first and contiguous; an input that is not
+    batched is expanded to every room."""
+    if dim is None:
+        x = x.unsqueeze(0).expand(rooms, *x.shape)
+    else:
+        x = x.movedim(dim, 0)
+    return x.contiguous()
+
+
+def _rooms_of(lead: Tuple[int, ...], per_room: int = 1) -> int:
+    """The room count of a launch over ``lead`` (``()``: one world,
+    ``(R,)``: R rooms laid out back to back); raises when R x the room's
+    ``per_room`` blocks exceed one grid dimension (2^31 - 1)."""
+    rooms = lead[0] if lead else 1
+    if rooms * per_room > 0x7FFFFFFF:
+        raise ValueError(f"{rooms} rooms of {per_room} blocks exceed one launch's grid")
+    return rooms
+
+
+def _fold_rooms(lead: Tuple[int, ...], width: int, plan: Tuple[int, ...]) -> int:
+    """:func:`_rooms_of` for a fold launched under ``plan``."""
+    ty, tx, _threads, _smem, chunk = plan
+    return _rooms_of(lead, width * width if chunk else -(-width // ty) * -(-width // tx))
+
+
+def _launch_combat(vp: torch.Tensor, ap: torch.Tensor, lead: Tuple[int, ...], width: int,
+                   kv: int, ka: int, r2: float, plan: Tuple[int, ...]):
+    """combat_fold_kernel over the rooms of ``lead`` (``()``: one world,
+    ``(R,)``: R rooms laid out back to back)."""
+    dev = vp.device
+    if dev.type != "cuda":
+        raise ValueError(f"combat_fold_kernel runs on cuda, not {dev}")
+    rooms = _fold_rooms(lead, width, plan)
+    _check(vp, "victim payload", torch.float32, (*lead, width * width * kv + 1, V_FEATS + 1), dev)
+    _check(ap, "attacker payload", torch.float32, (*lead, width * width * ka + 1, A_FEATS + 1),
+           dev)
+    inc = torch.empty((*lead, width, width, kv), dtype=torch.int32, device=dev)
+    bestr = torch.empty_like(inc)
+    lib = library()
+    with _on(dev):
+        err = lib.nf_combat_fold(
+            vp.data_ptr(), ap.data_ptr(), rooms, width, width, kv, ka, r2,
+            *plan, inc.data_ptr(), bestr.data_ptr(), _stream(dev))
+    _raise_on(lib, err, "combat_fold_kernel")
+    KERNELS["combat_fold"].launches += 1
+    return inc, bestr
+
+
+def _launch_slot_rows(vslot: torch.Tensor, aslot: torch.Tensor, lead: Tuple[int, ...],
+                      width: int, kv: int, ka: int):
+    """slot_rows_kernel (and the two zero fills) over the rooms of ``lead``."""
+    dev = vslot.device
+    if dev.type != "cuda":
+        raise ValueError(f"slot_rows_kernel runs on cuda, not {dev}")
+    n = vslot.shape[-1]
+    rooms = _rooms_of(lead, -(-n // 256))
+    _check(vslot, "victim slot_of", torch.int32, (*lead, n), dev)
+    _check(aslot, "attacker slot_of", torch.int32, (*lead, n), dev)
+    vtab = torch.empty((*lead, width, width, kv), dtype=torch.int32, device=dev)
+    atab = torch.empty((*lead, width, width, ka), dtype=torch.int32, device=dev)
+    lib = library()
+    with _on(dev):
+        err = lib.nf_slot_rows(
+            vslot.data_ptr(), aslot.data_ptr(), rooms, n, width * width * kv,
+            width * width * ka, vtab.data_ptr(), atab.data_ptr(), _stream(dev))
+    _raise_on(lib, err, "slot_rows_kernel")
+    return vtab, atab
+
+
+def _launch_fused(bank: torch.Tensor, vtab: torch.Tensor, atab: torch.Tensor,
+                  lead: Tuple[int, ...], width: int, kv: int, ka: int, r2: float,
+                  plan: Tuple[int, ...]):
+    """fused_neighborhood_kernel over the rooms of ``lead``."""
+    dev = bank.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_neighborhood_kernel runs on cuda, not {dev}")
+    rooms = _fold_rooms(lead, width, plan)
+    n = bank.shape[-2]
+    _check(bank, "bank", torch.float32, (*lead, n, B_FEATS), dev)
+    _check(vtab, "victim row table", torch.int32, (*lead, width, width, kv), dev)
+    _check(atab, "attacker row table", torch.int32, (*lead, width, width, ka), dev)
+    inc = torch.empty((*lead, width, width, kv), dtype=torch.int32, device=dev)
+    bestr = torch.empty_like(inc)
+    nbr = torch.empty_like(inc)
+    lib = library()
+    with _on(dev):
+        err = lib.nf_fused_neighborhood(
+            bank.data_ptr(), vtab.data_ptr(), atab.data_ptr(), rooms, n, width, width, kv, ka,
+            r2, *plan, inc.data_ptr(), bestr.data_ptr(), nbr.data_ptr(), _stream(dev))
+    _raise_on(lib, err, "fused_neighborhood_kernel")
+    KERNELS["fused_neighborhood"].launches += 1
+    return inc, bestr, nbr
+
+
+@torch.library.custom_op("nf::combat_fold", mutates_args=())
+def _combat_fold_op(vic: torch.Tensor, att: torch.Tensor, width: int, kv: int, ka: int,
+                    r2: float, ty: int, tx: int, threads: int, smem: int,
+                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_combat(vic, att, (), width, kv, ka, r2, (ty, tx, threads, smem, chunk))
+
+
+@_combat_fold_op.register_fake
+def _(vic, att, width, kv, ka, r2, ty, tx, threads, smem, chunk):
+    shape = (width, width, kv)
+    return vic.new_empty(shape, dtype=torch.int32), vic.new_empty(shape, dtype=torch.int32)
+
+
+@torch.library.register_vmap("nf::combat_fold")
+def _(info, in_dims, vic, att, width, kv, ka, r2, ty, tx, threads, smem, chunk):
+    r = info.batch_size
+    out = _launch_combat(_room_front(vic, in_dims[0], r), _room_front(att, in_dims[1], r),
+                         (r,), width, kv, ka, r2, (ty, tx, threads, smem, chunk))
+    return out, (0, 0)
+
+
+@torch.library.custom_op("nf::slot_rows", mutates_args=())
+def _slot_rows_op(vslot: torch.Tensor, aslot: torch.Tensor, width: int, kv: int,
+                  ka: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_slot_rows(vslot, aslot, (), width, kv, ka)
+
+
+@_slot_rows_op.register_fake
+def _(vslot, aslot, width, kv, ka):
+    return (vslot.new_empty((width, width, kv), dtype=torch.int32),
+            vslot.new_empty((width, width, ka), dtype=torch.int32))
+
+
+@torch.library.register_vmap("nf::slot_rows")
+def _(info, in_dims, vslot, aslot, width, kv, ka):
+    r = info.batch_size
+    out = _launch_slot_rows(_room_front(vslot, in_dims[0], r), _room_front(aslot, in_dims[1], r),
+                            (r,), width, kv, ka)
+    return out, (0, 0)
+
+
+@torch.library.custom_op("nf::fused_neighborhood", mutates_args=())
+def _fused_op(bank: torch.Tensor, vtab: torch.Tensor, atab: torch.Tensor, width: int, kv: int,
+              ka: int, r2: float, ty: int, tx: int, threads: int, smem: int,
+              chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _launch_fused(bank, vtab, atab, (), width, kv, ka, r2, (ty, tx, threads, smem, chunk))
+
+
+@_fused_op.register_fake
+def _(bank, vtab, atab, width, kv, ka, r2, ty, tx, threads, smem, chunk):
+    shape = (width, width, kv)
+    return tuple(bank.new_empty(shape, dtype=torch.int32) for _ in range(3))
+
+
+@torch.library.register_vmap("nf::fused_neighborhood")
+def _(info, in_dims, bank, vtab, atab, width, kv, ka, r2, ty, tx, threads, smem, chunk):
+    r = info.batch_size
+    out = _launch_fused(_room_front(bank, in_dims[0], r), _room_front(vtab, in_dims[1], r),
+                        _room_front(atab, in_dims[2], r), (r,), width, kv, ka, r2,
+                        (ty, tx, threads, smem, chunk))
+    return out, (0, 0, 0)
+
+
 # -- the wrappers --------------------------------------------------------------
+
+
+def _r2(radius: float) -> float:
+    return float(radius) * float(radius)
 
 
 def combat_fold(vic_table: CellTable, att_table: CellTable,
                 radius: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Engine 1: the split-table combat fold.  CPU tensors run
     :func:`combat_fold_plain`; CUDA tensors launch ``combat_fold_kernel``
-    (or its chunk form) as :func:`plan_fold` plans it.  Returns (inc,
-    bestr), each [H, W, Kv] int32."""
+    (or its chunk form) as :func:`plan_fold` plans it, once for all rooms
+    under ``torch.func.vmap``.  Returns (inc, bestr), each [H, W, Kv]
+    int32."""
     if vic_table.payload.device.type == "cpu":
         return combat_fold_plain(vic_table, att_table, radius)
     plan = plan_fold("combat", vic_table.width, vic_table.bucket, att_table.bucket)
@@ -437,24 +615,12 @@ def combat_fold(vic_table: CellTable, att_table: CellTable,
 def combat_fold_planned(vic_table: CellTable, att_table: CellTable, radius: float,
                         plan: FoldPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`combat_fold` on CUDA tensors under a given launch plan."""
-    vp, ap = vic_table.payload, att_table.payload
-    dev = vp.device
-    if dev.type != "cuda":
-        raise ValueError(f"combat_fold_kernel runs on cuda, not {dev}")
-    w, kv, ka = vic_table.width, vic_table.bucket, att_table.bucket
+    w = vic_table.width
     if att_table.width != w or plan.width != w or plan.kind != "combat":
         raise ValueError("tables and plan differ in grid width or kind")
-    _check(vp, "victim payload", torch.float32, (w * w * kv + 1, V_FEATS + 1), dev)
-    _check(ap, "attacker payload", torch.float32, (w * w * ka + 1, A_FEATS + 1), dev)
-    inc, bestr = torch.empty((2, w, w, kv), dtype=torch.int32, device=dev)
-    lib = library()
-    with _on(dev):
-        err = lib.nf_combat_fold(
-            vp.data_ptr(), ap.data_ptr(), w, w, kv, ka, float(radius) * float(radius),
-            *_plan_args(plan), inc.data_ptr(), bestr.data_ptr(), _stream(dev))
-    _raise_on(lib, err, "combat_fold_kernel")
-    KERNELS["combat_fold"].launches += 1
-    return inc, bestr
+    return torch.ops.nf.combat_fold(vic_table.payload, att_table.payload, w,
+                                    vic_table.bucket, att_table.bucket, _r2(radius),
+                                    *_plan_args(plan))
 
 
 def row_tables(vic_slots: CellSlots, att_slots: CellSlots,
@@ -462,19 +628,10 @@ def row_tables(vic_slots: CellSlots, att_slots: CellSlots,
     """The fused kernel's row tables on CUDA, one zero fill each and one
     scatter launch for both: [H, W, K] int32 holding row + 1 per slot, 0
     for an empty slot (``slot_rows`` + 1 with its sentinel ``n`` as 0)."""
-    dev = vic_slots.slot_of.device
-    w, kv, ka = vic_slots.width, vic_slots.bucket, att_slots.bucket
-    _check(vic_slots.slot_of, "victim slot_of", torch.int32, (n,), dev)
-    _check(att_slots.slot_of, "attacker slot_of", torch.int32, (n,), dev)
-    vtab = torch.empty((w, w, kv), dtype=torch.int32, device=dev)
-    atab = torch.empty((w, w, ka), dtype=torch.int32, device=dev)
-    lib = library()
-    with _on(dev):
-        err = lib.nf_slot_rows(
-            vic_slots.slot_of.data_ptr(), att_slots.slot_of.data_ptr(), n,
-            vtab.numel(), atab.numel(), vtab.data_ptr(), atab.data_ptr(), _stream(dev))
-    _raise_on(lib, err, "slot_rows_kernel")
-    return vtab, atab
+    if vic_slots.slot_of.shape[-1] != n or att_slots.slot_of.shape[-1] != n:
+        raise ValueError(f"slot assignments do not cover {n} rows")
+    return torch.ops.nf.slot_rows(vic_slots.slot_of, att_slots.slot_of, vic_slots.width,
+                                  vic_slots.bucket, att_slots.bucket)
 
 
 def fused_neighborhood(bank: torch.Tensor, vic_slots: CellSlots,
@@ -483,7 +640,8 @@ def fused_neighborhood(bank: torch.Tensor, vic_slots: CellSlots,
     AOI occupancy count.  CPU tensors run :func:`fused_neighborhood_plain`;
     CUDA tensors build the row tables (:func:`row_tables`) and launch
     ``fused_neighborhood_kernel`` (or its chunk form) as :func:`plan_fold`
-    plans it.  Returns (inc, bestr, nbr), each [H, W, Kv] int32."""
+    plans it, once for all rooms under ``torch.func.vmap``.  Returns (inc,
+    bestr, nbr), each [H, W, Kv] int32."""
     if bank.device.type == "cpu":
         return fused_neighborhood_plain(bank, vic_slots, att_slots, radius)
     plan = plan_fold("fused", vic_slots.width, vic_slots.bucket, att_slots.bucket)
@@ -493,22 +651,9 @@ def fused_neighborhood(bank: torch.Tensor, vic_slots: CellSlots,
 def fused_neighborhood_planned(bank: torch.Tensor, vic_slots: CellSlots,
                                att_slots: CellSlots, radius: float, plan: FoldPlan):
     """:func:`fused_neighborhood` on CUDA tensors under a given plan."""
-    dev = bank.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_neighborhood_kernel runs on cuda, not {dev}")
-    n = bank.shape[0]
-    w, kv, ka = vic_slots.width, vic_slots.bucket, att_slots.bucket
+    w = vic_slots.width
     if att_slots.width != w or plan.width != w or plan.kind != "fused":
         raise ValueError("slots and plan differ in grid width or kind")
-    _check(bank, "bank", torch.float32, (n, B_FEATS), dev)
-    vtab, atab = row_tables(vic_slots, att_slots, n)
-    inc, bestr, nbr = torch.empty((3, w, w, kv), dtype=torch.int32, device=dev)
-    lib = library()
-    with _on(dev):
-        err = lib.nf_fused_neighborhood(
-            bank.data_ptr(), vtab.data_ptr(), atab.data_ptr(),
-            w, w, kv, ka, float(radius) * float(radius), *_plan_args(plan),
-            inc.data_ptr(), bestr.data_ptr(), nbr.data_ptr(), _stream(dev))
-    _raise_on(lib, err, "fused_neighborhood_kernel")
-    KERNELS["fused_neighborhood"].launches += 1
-    return inc, bestr, nbr
+    vtab, atab = row_tables(vic_slots, att_slots, bank.shape[-2])
+    return torch.ops.nf.fused_neighborhood(bank, vtab, atab, w, vic_slots.bucket,
+                                           att_slots.bucket, _r2(radius), *_plan_args(plan))

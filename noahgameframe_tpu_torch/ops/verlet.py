@@ -134,7 +134,7 @@ def refresh(cache: VerletCache, pos: torch.Tensor, active: torch.Tensor,
             slot_of = _counting_slots(key, n_cells, bucket)
         else:
             n_cells, order, skey, _head, rank = _sorted_segments(pos, active, cell_size, width)
-            slot_of = _slots_from_ranks(n, n_cells, order, skey, rank, bucket)
+            slot_of = _slots_from_ranks(n_cells, order, skey, rank, bucket)
         return VerletCache(
             # copies: a cache leaf never aliases a bank of the state
             anchor_pos=pos[:, :2].to(torch.float32, copy=True),
@@ -168,7 +168,7 @@ def sub_slots(cache: VerletCache, sub_mask, n_cells: int, sub_bucket: int) -> to
     order, skey = cache.order.long(), cache.skey
     head = torch.searchsorted(skey, skey, side="left")
     sub_rank = _subset_ranks(sub_mask, order, head, n_cells, sub_bucket)
-    return _slots_from_ranks(order.shape[0], n_cells, order, skey, sub_rank, sub_bucket)
+    return _slots_from_ranks(n_cells, order, skey, sub_rank, sub_bucket)
 
 
 def sub_table(cache: VerletCache, sub_mask, sub_features, n_cells: int, cell_size: float,

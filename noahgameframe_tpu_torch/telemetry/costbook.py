@@ -30,6 +30,7 @@ Sanctioned re-captures call :meth:`generation_bump`; ``mark()`` /
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
@@ -179,12 +180,35 @@ class _Graph:
                 fn(self.state)  # functional: the results are dropped
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
+        # a dropped graph that only a reference cycle still holds must not
+        # be destroyed while this one captures (a destroy is refused under
+        # capture and invalidates it): collect now, and not during
+        # (torch.cuda.graph collects only under force_cudagraph_gc)
+        gc.collect()
         # the capture empties the allocator's cache first; so does this,
         # so the reserved bytes it adds are the graph's own pool
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved(dev)
         before = {k: c.launches for k, c in launch_counters.items()}
         self.cuda_graph = torch.cuda.CUDAGraph(keep_graph=True)
+        gc.disable()
+        try:
+            self._record(fn, spec, inputs)
+        finally:
+            gc.enable()
+        self.cuda_graph.instantiate()
+        self.per_replay = {}
+        for k, c in launch_counters.items():
+            self.per_replay[k] = c.launches - before[k]
+            c.launches = before[k]
+        torch.cuda.synchronize(dev)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
+        self.max_allocated = torch.cuda.max_memory_allocated(dev)
+        self.launches_per_replay = self._count_launches()
+
+    def _record(self, fn, spec, inputs) -> None:
+        """Capture ``fn`` on the state, then the copies of its written
+        leaves back into the inputs."""
         with torch.cuda.graph(self.cuda_graph):
             new_state, self.outs = fn(self.state)
             new_leaves, new_spec, _ = flatten(new_state)
@@ -200,15 +224,6 @@ class _Graph:
                 writes.append((dst, src))
             for dst, src in writes:
                 dst.copy_(src)
-        self.cuda_graph.instantiate()
-        self.per_replay = {}
-        for k, c in launch_counters.items():
-            self.per_replay[k] = c.launches - before[k]
-            c.launches = before[k]
-        torch.cuda.synchronize(dev)
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
-        self.max_allocated = torch.cuda.max_memory_allocated(dev)
-        self.launches_per_replay = self._count_launches()
         self.copy_backs = len(writes)
 
     def _count_launches(self) -> int:

@@ -131,19 +131,19 @@ def build_probe(kind: str, stage: int):
 
 
 def combat_only(lib, vt, at, w, kv, ka, r2, plan, out):
-    """The combat fold launch through ``lib``."""
+    """The combat fold launch through ``lib`` (one world: R = 1)."""
     err = lib.nf_combat_fold(
-        vt.payload.data_ptr(), at.payload.data_ptr(), w, w, kv, ka, r2,
+        vt.payload.data_ptr(), at.payload.data_ptr(), 1, w, w, kv, ka, r2,
         *sck._plan_args(plan), *(t.data_ptr() for t in out),
         torch.cuda.current_stream().cuda_stream)
     sck._raise_on(sck.library(), err, "combat_fold_kernel")
 
 
 def fused_fold_only(bank, vtab, atab, w, kv, ka, r2, plan, out, lib=None):
-    """The fused fold launch alone, on prebuilt row tables."""
+    """The fused fold launch alone, on prebuilt row tables (R = 1)."""
     lib = lib or sck.library()
     err = lib.nf_fused_neighborhood(
-        bank.data_ptr(), vtab.data_ptr(), atab.data_ptr(), w, w, kv, ka, r2,
+        bank.data_ptr(), vtab.data_ptr(), atab.data_ptr(), 1, bank.shape[0], w, w, kv, ka, r2,
         *sck._plan_args(plan), *(t.data_ptr() for t in out),
         torch.cuda.current_stream().cuda_stream)
     sck._raise_on(lib, err, "fused_neighborhood_kernel")

@@ -19,10 +19,12 @@ DETAIL_KEYS = {
 
 
 def _bench(*args, env=None):
+    # one intra-op thread: beside a parallel test run, an entry's thread
+    # pool on every core oversubscribes the machine and its time explodes
     return subprocess.run(
         [sys.executable, "-m", "noahgameframe_tpu_torch.bench", *args],
         cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, **(env or {})})
+        env={**os.environ, "OMP_NUM_THREADS": "1", **(env or {})})
 
 
 def test_bench_prints_one_line_on_the_cpu():
@@ -51,3 +53,29 @@ def test_bench_without_a_card_fails():
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert "device='cpu'" in proc.stderr
+
+
+def test_bench_rooms_ladder_on_the_cpu():
+    """--rooms: run_rooms's keys per rung, the churn and re-capture gates,
+    and under --train the train arm and its digest parity against ticks."""
+    proc = _bench("--rooms", "--device", "cpu", "--rooms-count", "2,4", "--rooms-ticks", "2",
+                  "--rooms-churn", "2", "--train", "2")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "rooms_train_room_ticks_per_sec"
+    assert line["unit"] == "room-ticks/s" and line["value"] > 0
+    d = line["detail"]
+    assert d["platform"] == "cpu" and d["all_gates"] is True and d["tick_train"] == 2
+    assert [p["rooms"] for p in d["points"]] == [2, 4]
+    p = d["points"][-1]
+    for key in ("admit_ms_per_room", "tick_p50_ms", "tick_p99_ms", "room_ticks_per_sec",
+                "entity_ticks_per_sec", "dropped_rows", "unexplained_recompiles",
+                "train_room_ticks_per_sec", "train_dispatches", "digest_parity",
+                "launches_per_tick", "costbook"):
+        assert key in p, key
+    assert p["rooms_admitted"] == 3 and p["entities_per_room"] == 32
+    assert p["dropped_rows"] == 0 and p["unexplained_recompiles"] == 0
+    assert p["digest_parity"] is True and p["digest_parity_ticks"] == 120
+    assert p["train_dispatches"] == 2 and p["graph"] is False

@@ -261,3 +261,108 @@ def test_graph_replay_sees_eager_ticks_and_host_writes(cuda):
     assert counters[0] == counters[1]
     assert _digest(worlds[1].kernel) == _digest(worlds[0].kernel)
     assert worlds[1].kernel.costbook.entries["kernel.run"].compiles == 1
+
+
+# -- the room axis -------------------------------------------------------------
+
+
+def _room_inputs(cuda, rooms, width, kv, ka, seed):
+    """Per room, a population of 64 rows (room 1 with entities at the
+    origin) binned on the room's own grid, all rooms built in one vmapped
+    call: (victim payloads, attacker payloads, victim slots, attacker
+    slots, banks), each with a leading room axis."""
+    from noahgameframe_tpu_torch.parallel.rooms import no_vmap_fallback
+
+    pops = [_edge_population(64, 4.0 * width, seed + r, origin=2 if r == 1 else 0)
+            for r in range(rooms)]
+    pos, alive, attacking, vic, att, bank = (
+        torch.from_numpy(np.stack([p[i] for p in pops])).to(cuda) for i in range(6))
+
+    def build(pos, alive, attacking, vic, att):
+        vt, at = st.build_cell_table_pair(pos, alive, vic, attacking, att, 4.0, width, kv, ka)
+        return vt.payload, at.payload, vt.slot_of, at.slot_of
+
+    with no_vmap_fallback():
+        return (*torch.func.vmap(build)(pos, alive, attacking, vic, att), bank)
+
+
+def _tables(width, kv, ka, vp, ap, vs=None, as_=None):
+    return (st.CellTable(vp, vs, None, width, 4.0, kv), st.CellTable(ap, as_, None, width, 4.0, ka))
+
+
+def _slots(width, kv, ka, vs, as_):
+    return st.CellSlots(vs, None, width, 4.0, kv), st.CellSlots(as_, None, width, 4.0, ka)
+
+
+@pytest.mark.parametrize("rooms", [1, 3])
+@pytest.mark.parametrize("width", [10, 13])
+def test_batched_kernels_match_room_loop_and_vmapped_plain(cuda, rooms, width):
+    """Under torch.func.vmap each kernel makes ONE launch for all rooms
+    (its count goes up by one), and equals, bit for bit, a loop of one
+    launch a room and the vmapped plain version."""
+    from noahgameframe_tpu_torch.parallel.rooms import no_vmap_fallback
+
+    kv, ka = 8, 6
+    vp, ap, vs, as_, bank = _room_inputs(cuda, rooms, width, kv, ka, seed=width)
+    before = {k: v.launches for k, v in sc.KERNELS.items()}
+    with no_vmap_fallback():
+        k1 = torch.func.vmap(lambda v, a: sc.combat_fold(*_tables(width, kv, ka, v, a), 4.0))(
+            vp, ap)
+        k2 = torch.func.vmap(lambda b, v, a: sc.fused_neighborhood(
+            b, *_slots(width, kv, ka, v, a), 4.0))(bank, vs, as_)
+    assert all(sc.KERNELS[k].launches == before[k] + 1 for k in before)
+    with no_vmap_fallback():
+        p1 = torch.func.vmap(lambda v, a: sc.combat_fold_plain(
+            *_tables(width, kv, ka, v, a), 4.0))(vp, ap)
+        p2 = torch.func.vmap(lambda b, v, a: sc.fused_neighborhood_plain(
+            b, *_slots(width, kv, ka, v, a), 4.0))(bank, vs, as_)
+    loop1 = [sc.combat_fold(*_tables(width, kv, ka, vp[r], ap[r]), 4.0) for r in range(rooms)]
+    loop2 = [sc.fused_neighborhood(bank[r], *_slots(width, kv, ka, vs[r], as_[r]), 4.0)
+             for r in range(rooms)]
+    for i in range(2):
+        assert torch.equal(k1[i], torch.stack([x[i] for x in loop1]))
+        assert torch.equal(k1[i], p1[i])
+    for i in range(3):
+        assert torch.equal(k2[i], torch.stack([x[i] for x in loop2]))
+        assert torch.equal(k2[i], p2[i])
+    assert bool((k1[0] > 0).any()) and bool((k2[2] > 0).any())
+
+
+@pytest.mark.parametrize("engine", [1, 2])
+def test_rooms_on_the_card_match_the_cpu(cuda, engine):
+    """A RoomBatch on the card (its step and run loop CUDA graphs of the
+    vmapped step) gives the CPU batch's [R, L] summaries tick by tick, and
+    its fold kernel launches once per replayed rooms tick."""
+    from noahgameframe_tpu_torch.core.prng import prng_key
+    from noahgameframe_tpu_torch.game.world import GameWorld, WorldConfig
+    from noahgameframe_tpu_torch.parallel.rooms import RoomBatch
+
+    def batch(device):
+        w = GameWorld(WorldConfig(npc_capacity=32, player_capacity=8, extent=64.0, seed=7,
+                                  verlet_skin=2.0), device=device)
+        w.start()
+        w.scene.create_scene(1, width=64.0)
+        w.seed_npcs(16, rng=np.random.default_rng(107))
+        w.kernel.enable_digest()
+        w.combat.use_pallas = engine
+        w.kernel._ensure_aux()
+        b = RoomBatch(w.kernel, 4)
+        for i in range(4):
+            b.admit(i, w.kernel.state.replace(rng=prng_key(50 + i, device)))
+        return b
+
+    gpu, cpu = batch(cuda), batch("cpu")
+    name = "combat_fold" if engine == 1 else "fused_neighborhood"
+    before = sc.KERNELS[name].launches
+    for t in range(6):
+        gpu.tick()
+        cpu.tick()
+        np.testing.assert_array_equal(gpu.last_summary, cpu.last_summary, err_msg=f"tick {t}")
+    gpu.run(4)
+    cpu.run(4)
+    np.testing.assert_array_equal(gpu.last_summary, cpu.last_summary)
+    # each capture runs 2 eager warm-up steps; 10 rooms ticks are replayed
+    assert sc.KERNELS[name].launches - before == 10 + 2 * 2
+    for entry in ("rooms.step", "rooms.run"):
+        assert gpu.costbook.entries[entry].last["graph"] is True
+        assert gpu.costbook.entries[entry].last["kernel_launches_per_replay"][name] == 1
