@@ -50,7 +50,20 @@ non-zero without printing a result:
    line printed.  Phase 2 also holds each kernel's room axis: at the
    rooms geometry (R = 16,384, 10 x 10 cells, Kv = 8, Ka = 6) and at R = 3
    with width 13, one batched launch equals a loop of one launch a room
-   and the vmapped plain version, bit for bit, with times and bounds.
+   and the vmapped plain version, bit for bit, with times and bounds;
+(g) persistence at 1M (run after phase 5): the main path's world, its
+   digest on, settles 20 observed frames and 10 graph ticks, saves
+   (``GameWorld.save``: the D2H and npz-write split, bytes on disk), then
+   ticks 30 observed frames and a 30-tick graph run (stream A); rewound by
+   ``load`` it repeats both with no new capture (stream B); a second 1M
+   world of the recipe, settled the same 20 frames, loads the checkpoint
+   and ticks stream A under engine 1 (C) and engine 2 (D), and a graph run
+   after a load ends on C's last digest; a checkpoint saved on the card at
+   4,096 NPCs resumes on the CPU with an equal stream; and the host
+   plane's times at 1M (a create, a write, a destroy; 32 players saved and
+   reloaded by a PlayerDataAgent on FileKV, each equal to what was saved),
+   with the card's name and power limit.  The kernel table gains each
+   kernel's launches in the resumed runs (``resumed_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -62,9 +75,11 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,6 +92,7 @@ from noahgameframe_tpu_torch.kernel import kernel as km
 from noahgameframe_tpu_torch.ops import stencil as sc
 from noahgameframe_tpu_torch.ops import stencil_cuda as sck
 from noahgameframe_tpu_torch.parallel import rooms
+from noahgameframe_tpu_torch.persist import FileKV, PlayerDataAgent
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # rate outside the tensor cores
@@ -1065,6 +1081,185 @@ def phase_bench_rooms():
     emit({"phase": "bench_rooms", "line": line})
 
 
+# -- (g) persistence at 1M ---------------------------------------------------------
+
+
+def observed_stream(w, n: int) -> list:
+    """The digests of n observed frames (``GameWorld.tick``)."""
+    return [w.tick().counters["state_digest"] & 0xFFFFFFFF for _ in range(n)]
+
+
+def captures(k) -> dict:
+    """Captures so far of the tick's entries (a new signature captures)."""
+    return {n: k.costbook.entry(n).compiles for n in ("kernel.step", "kernel.run")}
+
+
+def synced(fn):
+    """``fn()`` and its wall seconds up to a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def settled_world(n: int, device: str, ticks: int = 20):
+    """The main path's world with the digest on, ticked ``ticks`` observed
+    frames: the overflow auto-resize (``_bucket_boost``, host state that a
+    checkpoint does not carry) has done its work."""
+    w = gw.build_benchmark_world(n, seed=SEED, device=device)
+    w.kernel.enable_digest()
+    w.run(ticks)
+    return w
+
+
+def phase_persist(card: str):
+    """(g): checkpoint and resume of the 1M world, engine 1, sort, no skin.
+
+    A: 20 observed frames and 10 graph ticks, save, then 30 observed frames
+    and a 30-tick graph run.  B: the same world rewound by ``load``, the
+    same 60 ticks, equal digests and no new capture.  C and D: a second
+    1M world of the recipe, settled 20 frames, loads the checkpoint and
+    ticks 30 observed frames under engine 1, then (loaded again) engine 2;
+    both equal A; loaded once more, a 30-tick graph run ends on C's last
+    digest.  Then a checkpoint saved on the card at 4,096 NPCs resumes on
+    the CPU with an equal stream, and the host plane's times at 1M: one
+    create, one write, one destroy, and 32 players saved and reloaded
+    through a PlayerDataAgent on FileKV.  Returns each kernel's launches
+    in the resumed runs."""
+    tmp = tempfile.mkdtemp(prefix="nf_persist_")
+    try:
+        ck = os.path.join(tmp, "world")
+        w = settled_world(N_MAIN, DEV)
+        k = w.kernel
+        k.run_device(10)  # captures kernel.run: the rewind must keep it
+        boost = w.combat._bucket_boost
+        save, save_s = synced(lambda: w.save(ck))
+        on_disk = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+
+        def run_a_b():
+            stream = observed_stream(w, 30)
+            k.run_device(30)
+            return stream, digest(k)
+
+        a_stream, a_end = run_a_b()
+        check(w.combat._bucket_boost == boost, "no overflow resize in stream A")
+        before = captures(k)
+        sck.reset_launch_counts()
+        load_b, load_b_s = synced(lambda: w.load(ck))
+        b_stream, b_end = run_a_b()
+        after = captures(k)
+        launches_b = {n: kk.launches for n, kk in sck.KERNELS.items()}
+        check(b_stream == a_stream and b_end == a_end,
+              "the rewound world repeats stream A and its graph run")
+        check(after == before, f"the rewind's load captured nothing anew ({before} -> {after})")
+        check(launches_b["combat_fold"] == 60, "the rewound runs went through kernel 1")
+
+        f = settled_world(N_MAIN, DEV)
+        fk = f.kernel
+        fk.run_device(1)  # captures kernel.run, so the resumed graph run replays it
+        fresh_boost = f.combat._bucket_boost
+        fresh_captures = captures(fk)
+        resumed = {}
+        sck.reset_launch_counts()
+        load_c, load_c_s = synced(lambda: f.load(ck))
+        c_stream = observed_stream(f, 30)
+        resumed["c"] = {n: kk.launches for n, kk in sck.KERNELS.items()}
+        f.combat.use_pallas = 2
+        f.load(ck)
+        sck.reset_launch_counts()
+        d_stream = observed_stream(f, 30)
+        resumed["d"] = {n: kk.launches for n, kk in sck.KERNELS.items()}
+        f.combat.use_pallas = None
+        f.load(ck)
+        sck.reset_launch_counts()
+        fk.run_device(30)
+        resumed["graph"] = {n: kk.launches for n, kk in sck.KERNELS.items()}
+        f_end = digest(fk)
+        check(c_stream == a_stream, "the fresh world's resumed stream (engine 1) equals A")
+        check(d_stream == a_stream, "the fresh world's resumed stream (engine 2) equals A")
+        check(f_end == c_stream[-1], "the resumed graph run ends on stream C's last digest")
+        check(resumed["c"]["combat_fold"] == 30 and resumed["d"]["fused_neighborhood"] == 30
+              and resumed["graph"]["combat_fold"] == 30,
+              f"the resumed runs went through each engine's kernel every tick ({resumed})")
+        check(captures(fk)["kernel.run"] == fresh_captures["kernel.run"],
+              "the fresh world's loads captured no run graph anew")
+        del f, fk
+        free()
+
+        # across devices: saved on the card, resumed on the CPU
+        small = os.path.join(tmp, "small")
+        wc = settled_world(4096, DEV, ticks=10)
+        wc.save(small)
+        x = observed_stream(wc, 30)
+        wh = settled_world(4096, "cpu", ticks=10)
+        wh.load(small)
+        y = observed_stream(wh, 30)
+        check(x == y, "a checkpoint saved on cuda resumes on the cpu with an equal stream")
+        del wc, wh
+
+        # the host plane at 1M (functional writes: each replaces the banks
+        # it touches, and the next graph replay copies them in)
+        st = k.store
+        npc = next(g for g in st._hosts["NPC"].row_guid if g is not None)
+        victim = next(g for g in reversed(st._hosts["NPC"].row_guid) if g is not None)
+        host = {}
+        _, host["create_player_s"] = synced(lambda: k.create_object(
+            "Player", {"Name": "P0", "Account": "acct0"}, scene=1))
+        _, host["create_npc_s"] = synced(lambda: k.create_object("NPC", {"HP": 50}, scene=1))
+        _, host["set_property_npc_s"] = synced(lambda: k.set_property(npc, "Gold", 7))
+        _, host["destroy_npc_s"] = synced(lambda: k.destroy_object(victim))
+        check(k.get_property(npc, "Gold") == 7 and victim not in st.guid_map,
+              "the host writes landed")
+        mark = captures(k)
+        k.run_device(1)
+        check(captures(k) == mark, "a graph tick after host writes captures nothing anew")
+        agent = PlayerDataAgent(FileKV(os.path.join(tmp, "kv"))).bind(k)
+        players = {}
+        for i in range(32):
+            vals = {"Name": f"Hero{i}", "Account": f"acct{i + 1}", "Gold": 100 + i,
+                    "Level": i % 7, "Position": (float(i), 2.0 * i, 0.0)}
+            players[f"acct{i + 1}:Hero{i}"] = (k.create_object("Player", vals, scene=1), vals)
+        saved = {}
+
+        def save_all():
+            for key, (g, _vals) in players.items():
+                saved[key] = {p: k.get_property(g, p) for p in ("Gold", "Level", "Name",
+                                                                "Position")}
+                k.destroy_object(g)  # BEFORE_DESTROY saves the blob
+
+        def reload_all():
+            return {key: k.create_object("Player", {"Name": vals["Name"],
+                                                    "Account": vals["Account"]}, scene=1)
+                    for key, (_g, vals) in players.items()}
+
+        _, host["agent_save_32_s"] = synced(save_all)
+        check(all(agent.exists(key) for key in players), "every player's blob was saved")
+        back, host["agent_reload_32_s"] = synced(reload_all)
+        for key, g in back.items():
+            got = {p: k.get_property(g, p) for p in ("Gold", "Level", "Name", "Position")}
+            check(got == saved[key], f"{key} reloads with its saved properties")
+        resumed["b"] = launches_b
+        emit({"phase": "persist_1m", "entities": N_MAIN, "engine": 1, "card": card,
+              "state_bytes": save["raw_bytes"], "bytes_on_disk": on_disk,
+              "save_s": save_s, "save_split": save, "load_rewind_s": load_b_s,
+              "load_rewind_split": load_b, "load_fresh_s": load_c_s,
+              "load_fresh_split": load_c,
+              "streams_equal": {"rewind_B": True, "fresh_C": True, "fresh_D_engine2": True,
+                                "graph_after_load": True, "cuda_to_cpu_4096": True},
+              "new_captures_after_rewind": 0, "captures": after,
+              "bucket_boost": {"saving_world": boost, "fresh_world_settled": fresh_boost},
+              "a_last_digest": a_stream[-1], "a_graph_end": a_end,
+              "resumed_launches": resumed, "host_plane": host})
+        launches = {"combat_fold": sum(r["combat_fold"] for r in resumed.values()),
+                    "fused_neighborhood": sum(r["fused_neighborhood"] for r in resumed.values())}
+        del w, k, agent
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1072,7 +1267,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     t_start = t0 = time.perf_counter()
     sck.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1091,6 +1287,7 @@ def main() -> int:
     fused_launches = phase_verlet()
     free()
     phase_cpu_parity()
+    persist_launches = phase_persist(card)
     phase_bench()
     rooms_launches = phase_rooms()
     free()
@@ -1110,6 +1307,7 @@ def main() -> int:
          "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": None,
+         "resumed_launches": persist_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

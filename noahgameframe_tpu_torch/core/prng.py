@@ -26,6 +26,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -52,11 +54,12 @@ def threefry2x32(k1: IntLike, k2: IntLike, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def prng_key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` as an int64 ``[2]`` tensor."""
+def prng_key(seed: int, device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` as an int64 ``[2]`` tensor on ``device``
+    (``None`` = ``"cuda"``)."""
     s = int(np.int32(seed))  # jax without x64 takes the seed as int32
     hi = (s >> 32) & MASK32 if s >= 0 else 0
-    return torch.tensor([hi, s & MASK32], dtype=torch.int64, device=device)
+    return torch.tensor([hi, s & MASK32], dtype=torch.int64, device=resolve_device(device))
 
 
 def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:

@@ -26,14 +26,18 @@ The containers are plain dataclasses.  Updates are functional
 so the kernel can diff the pre-tick state against the post-tick one.
 
 Row allocation, guids and the string table stay on the host, as in the
-JAX package.  ``state_from_numpy`` / ``state_to_numpy`` carry a world
+JAX package, and so does the host object API: ``create_object``,
+``destroy_object``, typed ``set_property``/``get_property`` and the record
+operations, each taking a WorldState and returning a new one (a written
+bank is a fresh tensor).  ``state_from_numpy`` / ``state_to_numpy`` carry a world
 between the two packages as nested dicts of numpy arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import enum
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ from .datatypes import (
     NULL_OBJECT,
     Value,
     coerce,
+    default_value,
 )
 from .device import resolve_device
 from .prng import MASK32, prng_key
@@ -54,6 +59,30 @@ from .strings import StringTable
 
 HANDLE_ROW_BITS = 24
 HANDLE_ROW_MASK = (1 << HANDLE_ROW_BITS) - 1
+
+
+class RecordOp(enum.IntEnum):
+    """Per-op record event types, value-compatible with the reference's
+    NFIRecord::RecordOptype (NFIRecord.h:16-25)."""
+
+    ADD = 0
+    DEL = 1
+    SWAP = 2
+    CREATE = 3
+    UPDATE = 4
+    CLEARED = 5
+    SORT = 6
+    COVER = 7
+
+
+# (class_name, record_name, op, entity_rows, rec_row, tags): fired by the
+# host-side record mutators, batch-first (entity_rows is an int array, so
+# a bulk write costs one call).  tags is the touched-column subset for
+# UPDATE, None for whole-row ops; for SWAP, rec_row is the (origin,
+# target) row pair.
+RecordEventFn = Callable[
+    [str, str, "RecordOp", np.ndarray, Any, Optional[Tuple[str, ...]]], None
+]
 
 
 def pack_handle(class_idx: int, row: int) -> int:
@@ -262,8 +291,47 @@ def _zeros_class_state(spec: ClassSpec, cap: int, n_timers: int, device) -> Clas
     )
 
 
+def _scatter(bank: torch.Tensor, index, value) -> torch.Tensor:
+    """``bank.at[index].set(value)``: a copy of ``bank`` with the indexed
+    cells written (``value`` a Python scalar, a numpy array or a tensor)."""
+    out = bank.clone()
+    if isinstance(value, np.ndarray):
+        value = torch.from_numpy(value).to(out.device)
+    elif isinstance(value, np.generic):
+        value = value.item()
+    out[index] = value
+    return out
+
+
+def _reset_and_write_rows(cs: ClassState, rows: torch.Tensor, i32, f32, vec) -> ClassState:
+    """Row (re)initialization: value banks from the staged payloads,
+    timers disarmed, records cleared, alive on.  A recycled row must not
+    leak the previous entity's records or heartbeat schedule."""
+    t = cs.timers
+    timers = TimerState(
+        next_fire=_scatter(t.next_fire, rows, 0),
+        interval=_scatter(t.interval, rows, 1),
+        remain=_scatter(t.remain, rows, 0),
+        active=_scatter(t.active, rows, False),
+    )
+    records = {
+        r: RecordState(i32=_scatter(rec.i32, rows, 0), f32=_scatter(rec.f32, rows, 0.0),
+                       vec=_scatter(rec.vec, rows, 0.0), used=_scatter(rec.used, rows, False))
+        for r, rec in cs.records.items()
+    }
+    return cs.replace(
+        i32=_scatter(cs.i32, rows, i32) if cs.i32.shape[1] else cs.i32,
+        f32=_scatter(cs.f32, rows, f32) if cs.f32.shape[1] else cs.f32,
+        vec=_scatter(cs.vec, rows, vec) if cs.vec.shape[1] else cs.vec,
+        alive=_scatter(cs.alive, rows, True),
+        timers=timers,
+        records=records,
+    )
+
+
 class _ClassHost:
-    """Host bookkeeping for one class: free rows + row->guid."""
+    """Host bookkeeping for one class: free rows, row -> guid, and the
+    columnar mirrors the JAX package keeps beside them."""
 
     def __init__(self, spec: ClassSpec, class_idx: int, capacity: int):
         self.spec = spec
@@ -271,10 +339,27 @@ class _ClassHost:
         self.capacity = capacity
         self.free: List[int] = list(range(capacity - 1, -1, -1))
         self.row_guid: List[Optional[Guid]] = [None] * capacity
+        # allocation bitmap: reconcile_deaths finds device deaths with one
+        # vector op instead of a scan of every row
         self.alloc_mask = np.zeros(capacity, bool)
+        # columnar guid mirror of row_guid
+        self.guid_head = np.zeros(capacity, np.int64)
+        self.guid_data = np.zeros(capacity, np.int64)
+        # allocation generation, +1 per free: guids never recycle, so
+        # within one generation row and guid name the same entity
+        self.row_gen = np.zeros(capacity, np.int32)
+        self.live_count = 0
+
+    def alloc(self) -> int:
+        if not self.free:
+            raise RuntimeError(f"class {self.spec.name!r} capacity {self.capacity} exhausted")
+        self.live_count += 1
+        row = self.free.pop()
+        self.alloc_mask[row] = True
+        return row
 
     def alloc_many(self, n: int) -> np.ndarray:
-        if n <= 0:
+        if n <= 0:  # free[-0:] would slice the whole list
             return np.zeros(0, np.int32)
         if len(self.free) < n:
             raise RuntimeError(
@@ -283,6 +368,7 @@ class _ClassHost:
             )
         rows = np.asarray(self.free[-n:][::-1], np.int32)
         del self.free[-n:]
+        self.live_count += n
         self.alloc_mask[rows] = True
         return rows
 
@@ -290,6 +376,10 @@ class _ClassHost:
         self.row_guid[row] = None
         self.free.append(row)
         self.alloc_mask[row] = False
+        self.guid_head[row] = 0
+        self.guid_data[row] = 0
+        self.row_gen[row] += 1
+        self.live_count -= 1
 
 
 _BANK_NP = {Bank.I32: np.int32, Bank.F32: np.float32, Bank.VEC: np.float32}
@@ -298,26 +388,29 @@ _FAST_TYPES = (DataType.INT, DataType.FLOAT, DataType.VECTOR2, DataType.VECTOR3)
 
 class EntityStore:
     """Host-side owner of the device world: allocation, identity, typed
-    access.  Methods take and return WorldState."""
+    access.  Methods take and return WorldState.  ``device=None`` means
+    ``"cuda"``."""
 
     def __init__(
         self,
         registry: ClassRegistry,
         config: Optional[StoreConfig] = None,
         strings: Optional[StringTable] = None,
-        device="cpu",
         class_names: Optional[Sequence[str]] = None,
+        device=None,
     ):
         self.registry = registry
         self.config = config or StoreConfig()
         self.strings = strings or StringTable()
         self.guids = GuidAllocator()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         names = list(class_names) if class_names is not None else registry.names()
         self.class_order: List[str] = names
         self.class_index: Dict[str, int] = {n: i for i, n in enumerate(names)}
         self._hosts: Dict[str, _ClassHost] = {}
         self.guid_map: Dict[Guid, int] = {}  # guid -> packed handle
+        # host-path record hooks (reference NFIRecord::AddRecordHook)
+        self.record_subs: List[RecordEventFn] = []
         for n in names:
             spec = registry.spec(n)
             self._hosts[n] = _ClassHost(spec, self.class_index[n], self.config.capacity_of(n))
@@ -341,7 +434,7 @@ class EntityStore:
         return self._hosts[class_name].capacity
 
     def live_count(self, class_name: str) -> int:
-        return int(self._hosts[class_name].alloc_mask.sum())
+        return self._hosts[class_name].live_count
 
     # -- value encoding -----------------------------------------------------
 
@@ -357,7 +450,7 @@ class EntityStore:
             return np.int32(self.strings.intern(v))
         if t == DataType.OBJECT:
             if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
-                return np.int32(v)
+                return np.int32(v)  # a raw packed handle passed straight through
             v = coerce(t, v)
             if v.is_null():
                 return np.int32(NULL_OBJECT)
@@ -386,18 +479,81 @@ class EntityStore:
             return out
         return np.asarray([self.encode(t, v) for v in values], _BANK_NP[bank])
 
-    # -- create / reconcile -------------------------------------------------
+    def decode(self, t: DataType, raw) -> Value:
+        """Device scalar/vector -> host value."""
+        if isinstance(raw, torch.Tensor):
+            raw = _cpu(raw)
+        if t == DataType.INT:
+            return int(raw)
+        if t == DataType.FLOAT:
+            return float(raw)
+        if t == DataType.STRING:
+            return self.strings.lookup(int(raw))
+        if t == DataType.OBJECT:
+            h = int(raw)
+            if h == NULL_OBJECT:
+                return Guid()
+            ci, row = unpack_handle(h)
+            g = self._hosts[self.class_order[ci]].row_guid[row]
+            return g if g is not None else Guid()
+        if t == DataType.VECTOR2:
+            a = np.asarray(raw)
+            return (float(a[0]), float(a[1]))
+        if t == DataType.VECTOR3:
+            a = np.asarray(raw)
+            return (float(a[0]), float(a[1]), float(a[2]))
+        raise ValueError(f"cannot decode {t}")
+
+    # -- identity -----------------------------------------------------------
+
+    def handle_of(self, guid: Guid) -> int:
+        return self.guid_map[guid]
+
+    def guid_of_handle(self, handle: int) -> Optional[Guid]:
+        h = int(handle)
+        if h < 0:  # NULL_OBJECT and any other negative sentinel
+            return None
+        ci, row = unpack_handle(h)
+        if ci >= len(self.class_order):
+            return None
+        return self._hosts[self.class_order[ci]].row_guid[row]
+
+    def row_of(self, guid: Guid) -> Tuple[str, int]:
+        ci, row = unpack_handle(self.guid_map[guid])
+        return self.class_order[ci], row
+
+    # -- create / destroy / reconcile -----------------------------------------
+
+    def create_object(
+        self,
+        state: WorldState,
+        class_name: str,
+        guid: Optional[Guid] = None,
+        values: Optional[Dict[str, Value]] = None,
+    ) -> Tuple[WorldState, Guid, int]:
+        """Allocate one row; returns (state', guid, row).  The create-event
+        chain is driven by the kernel on top of this primitive."""
+        state, guids, rows = self.create_many(
+            state, class_name, 1,
+            guids=[guid] if guid is not None else None,
+            values={k: [v] for k, v in (values or {}).items()},
+        )
+        return state, guids[0], rows[0]
 
     def create_many(
         self,
         state: WorldState,
         class_name: str,
         n: int,
+        guids: Optional[Sequence[Guid]] = None,
         values: Optional[Dict[str, Any]] = None,
     ) -> Tuple[WorldState, List[Guid], np.ndarray]:
         """Bulk allocate n rows of class_name with per-property value
         columns; each written row is fully reset (banks to defaults or
-        the given values, timers off, records cleared, alive on)."""
+        the given values, timers off, records cleared, alive on).  Every
+        payload and identity is validated before any host bookkeeping
+        changes, so a bad name, an unknown guid or a full class leaks
+        nothing."""
         host = self._hosts[class_name]
         spec = host.spec
         i32 = np.zeros((n, spec.n_i32), np.int32)
@@ -413,49 +569,44 @@ class EntityStore:
             staged[slot.bank][:, slot.col] = self.encode_column(
                 slot.prop.type, slot.bank, col_vals
             )
-        rows = host.alloc_many(n)
-        guids = self.guids.next_batch(n)
+        if guids is not None:
+            if len(guids) != n:
+                raise ValueError("guids length must equal n")
+            if len({*guids}) != n:
+                raise ValueError("duplicate guids in create_many batch")
+            for g in guids:
+                if g in self.guid_map:
+                    raise ValueError(f"guid {g} already exists")
+        rows = host.alloc_many(n)  # raises on a full class before changing anything
+        out_guids: List[Guid] = list(guids) if guids is not None else self.guids.next_batch(n)
         ci = host.class_idx
-        for g, row in zip(guids, rows.tolist()):
+        for g, row in zip(out_guids, rows.tolist()):
             self.guid_map[g] = pack_handle(ci, row)
             host.row_guid[row] = g
+        host.guid_head[rows] = np.fromiter((g.head for g in out_guids), np.int64, n)
+        host.guid_data[rows] = np.fromiter((g.data for g in out_guids), np.int64, n)
         if n == 0:
-            return state, guids, rows
-
-        cs = state.classes[class_name]
+            return state, out_guids, rows
         idx = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+        cs = _reset_and_write_rows(state.classes[class_name], idx, i32, f32, vec)
+        return with_class(state, class_name, cs), out_guids, rows
 
-        def put(bank, value):
-            out = bank.clone()
-            out[idx] = value if not isinstance(value, np.ndarray) else torch.from_numpy(value).to(self.device)
-            return out
-
-        t = cs.timers
-        timers = TimerState(
-            next_fire=put(t.next_fire, 0),
-            interval=put(t.interval, 1),
-            remain=put(t.remain, 0),
-            active=put(t.active, False),
-        )
-        records = {
-            r: RecordState(i32=put(rec.i32, 0), f32=put(rec.f32, 0.0),
-                           vec=put(rec.vec, 0.0), used=put(rec.used, False))
-            for r, rec in cs.records.items()
-        }
+    def destroy_object(self, state: WorldState, guid: Guid) -> WorldState:
+        class_name, row = self.row_of(guid)
+        host = self._hosts[class_name]
+        cs = state.classes[class_name]
         cs = cs.replace(
-            i32=put(cs.i32, i32) if spec.n_i32 else cs.i32,
-            f32=put(cs.f32, f32) if spec.n_f32 else cs.f32,
-            vec=put(cs.vec, vec) if spec.n_vec else cs.vec,
-            alive=put(cs.alive, True),
-            timers=timers,
-            records=records,
+            alive=_scatter(cs.alive, row, False),
+            timers=cs.timers.replace(active=_scatter(cs.timers.active, row, False)),
         )
-        return with_class(state, class_name, cs), guids, rows
+        del self.guid_map[guid]
+        host.release(row)
+        return with_class(state, class_name, cs)
 
     def reconcile_deaths(self, state: WorldState, class_name: str) -> List[Guid]:
         """Free rows whose ``alive`` the device cleared; returns their guids."""
         host = self._hosts[class_name]
-        alive = state.classes[class_name].alive.cpu().numpy()
+        alive = _cpu(state.classes[class_name].alive)
         return self.release_rows(class_name, np.flatnonzero(host.alloc_mask & ~alive))
 
     def release_rows(self, class_name: str, rows) -> List[Guid]:
@@ -475,7 +626,157 @@ class EntityStore:
             host.release(row)
         return dead
 
-    # -- record bulk write --------------------------------------------------
+    # -- typed property access (host control plane) -------------------------
+
+    def set_property(self, state: WorldState, guid: Guid, prop_name: str,
+                     value: Value) -> WorldState:
+        class_name, row = self.row_of(guid)
+        slot = self.spec(class_name).slot(prop_name)
+        enc = self.encode(slot.prop.type, value)
+        cs = state.classes[class_name]
+        bank = slot.bank.value
+        cs = cs.replace(**{bank: _scatter(getattr(cs, bank), (row, slot.col), enc)})
+        return with_class(state, class_name, cs)
+
+    def get_property(self, state: WorldState, guid: Guid, prop_name: str) -> Value:
+        class_name, row = self.row_of(guid)
+        slot = self.spec(class_name).slot(prop_name)
+        raw = getattr(state.classes[class_name], slot.bank.value)[row, slot.col]
+        return self.decode(slot.prop.type, raw)
+
+    # -- record access (host control plane) ---------------------------------
+
+    def _rec(self, class_name: str, record_name: str) -> RecordSpec:
+        return self.spec(class_name).records[record_name]
+
+    def subscribe_records(self, fn: RecordEventFn) -> None:
+        """Register a host-path record hook (NFIRecord::AddRecordHook):
+        fired after every host record mutation with the op, the touched
+        entity rows, the record row, and (for UPDATE) the column tags."""
+        self.record_subs.append(fn)
+
+    def _fire_record(self, class_name: str, record_name: str, op: RecordOp,
+                     entity_rows, rec_row, tags: Optional[Tuple[str, ...]] = None) -> None:
+        if not self.record_subs:
+            return
+        rows = np.atleast_1d(np.asarray(entity_rows, np.int64))
+        for fn in self.record_subs:
+            fn(class_name, record_name, op, rows, rec_row, tags)
+
+    def _with_record(self, state: WorldState, class_name: str, record_name: str,
+                     rec: RecordState) -> WorldState:
+        cs = state.classes[class_name]
+        return with_class(state, class_name,
+                          cs.replace(records={**cs.records, record_name: rec}))
+
+    def _full_row(self, rs: RecordSpec, row_values: Dict[str, Value]) -> Dict[str, Value]:
+        """Every column of a record row: defaults, then ``row_values``
+        (a reused slot must not expose the deleted row's data)."""
+        full: Dict[str, Value] = {
+            tag: default_value(rs.cols[tag].col_def.type) for tag in rs.col_order
+        }
+        full.update(row_values)
+        return full
+
+    def _mark_used(self, state: WorldState, class_name: str, row: int, record_name: str,
+                   rec_row: int, used: bool) -> WorldState:
+        rec = state.classes[class_name].records[record_name]
+        rec = rec.replace(used=_scatter(rec.used, (row, rec_row), used))
+        return self._with_record(state, class_name, record_name, rec)
+
+    def record_add_row(self, state: WorldState, guid: Guid, record_name: str,
+                       row_values: Dict[str, Value]) -> Tuple[WorldState, int]:
+        """Append a row into the first unused slot (reference
+        NFCRecord::AddRow semantics)."""
+        class_name, row = self.row_of(guid)
+        rs = self._rec(class_name, record_name)
+        used = _cpu(state.classes[class_name].records[record_name].used[row])
+        free = np.flatnonzero(~used)
+        if free.size == 0:
+            raise RuntimeError(f"record {record_name!r} full ({rs.max_rows} rows)")
+        r = int(free[0])
+        state = self._record_write(state, class_name, row, record_name, r,
+                                   self._full_row(rs, row_values))
+        state = self._mark_used(state, class_name, row, record_name, r, True)
+        self._fire_record(class_name, record_name, RecordOp.ADD, row, r)
+        return state, r
+
+    def record_restore_row(self, state: WorldState, guid: Guid, record_name: str,
+                           rec_row: int, row_values: Dict[str, Value]) -> WorldState:
+        """Write a row at an exact index and mark it used: the load path,
+        which keeps row indices (the saved record blobs are row-addressed)."""
+        class_name, row = self.row_of(guid)
+        rs = self._rec(class_name, record_name)
+        state = self._record_write(state, class_name, row, record_name, rec_row,
+                                   self._full_row(rs, row_values))
+        state = self._mark_used(state, class_name, row, record_name, rec_row, True)
+        self._fire_record(class_name, record_name, RecordOp.ADD, row, rec_row)
+        return state
+
+    def record_remove_row(self, state: WorldState, guid: Guid, record_name: str,
+                          rec_row: int) -> WorldState:
+        class_name, row = self.row_of(guid)
+        state = self._mark_used(state, class_name, row, record_name, rec_row, False)
+        self._fire_record(class_name, record_name, RecordOp.DEL, row, rec_row)
+        return state
+
+    def record_swap_rows(self, state: WorldState, guid: Guid, record_name: str,
+                         row_origin: int, row_target: int) -> WorldState:
+        """Exchange two record rows' contents and used flags in one op
+        (reference NFCRecord::SwapRowInfo)."""
+        class_name, row = self.row_of(guid)
+        rec = state.classes[class_name].records[record_name]
+        pair = [row_origin, row_target]
+        swapped = [row_target, row_origin]
+
+        def swap(bank: torch.Tensor) -> torch.Tensor:
+            out = bank.clone()
+            out[row, pair] = bank[row, swapped]
+            return out
+
+        rec = RecordState(i32=swap(rec.i32), f32=swap(rec.f32), vec=swap(rec.vec),
+                          used=swap(rec.used))
+        state = self._with_record(state, class_name, record_name, rec)
+        self._fire_record(class_name, record_name, RecordOp.SWAP, row,
+                          (row_origin, row_target))
+        return state
+
+    def record_set(self, state: WorldState, guid: Guid, record_name: str, rec_row: int,
+                   tag: str, value: Value) -> WorldState:
+        class_name, row = self.row_of(guid)
+        state = self._record_write(state, class_name, row, record_name, rec_row, {tag: value})
+        self._fire_record(class_name, record_name, RecordOp.UPDATE, row, rec_row, (tag,))
+        return state
+
+    def record_get(self, state: WorldState, guid: Guid, record_name: str, rec_row: int,
+                   tag: str) -> Value:
+        class_name, row = self.row_of(guid)
+        slot = self._rec(class_name, record_name).cols[tag]
+        rec = state.classes[class_name].records[record_name]
+        raw = getattr(rec, slot.bank.value)[row, rec_row, slot.col]
+        return self.decode(slot.col_def.type, raw)
+
+    def record_used_rows(self, state: WorldState, guid: Guid, record_name: str) -> List[int]:
+        """Indices of used rows in an entity's record."""
+        class_name, row = self.row_of(guid)
+        rec = state.classes[class_name].records.get(record_name)
+        if rec is None:
+            return []
+        return [int(r) for r in np.flatnonzero(_cpu(rec.used[row]))]
+
+    def record_find_rows(self, state: WorldState, guid: Guid, record_name: str, tag: str,
+                         value: Value) -> List[int]:
+        """Used rows whose ``tag`` column equals value (reference
+        NFCRecord::FindInt/FindString family)."""
+        class_name, row = self.row_of(guid)
+        slot = self._rec(class_name, record_name).cols[tag]
+        rec = state.classes[class_name].records[record_name]
+        enc = self.encode(slot.col_def.type, value)
+        if slot.bank == Bank.VEC:
+            raise TypeError("find on vector columns unsupported")
+        col = _cpu(getattr(rec, slot.bank.value)[row, :, slot.col])
+        used = _cpu(rec.used[row])
+        return [int(i) for i in np.flatnonzero(used & (col == enc))]
 
     def record_write_rows(
         self,
@@ -489,35 +790,51 @@ class EntityStore:
     ) -> WorldState:
         """Bulk write one record row (``rec_row``) across many entities:
         ``col_values[tag][i]`` lands in entity ``rows[i]``."""
-        rs = self.spec(class_name).records[record_name]
-        cs = state.classes[class_name]
-        rec = cs.records[record_name]
+        rs = self._rec(class_name, record_name)
+        rec = state.classes[class_name].records[record_name]
         banks = {Bank.I32: rec.i32, Bank.F32: rec.f32, Bank.VEC: rec.vec}
         idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
         for tag, vals in col_values.items():
             slot = rs.cols[tag]
             enc = self.encode_column(slot.col_def.type, slot.bank, vals)
-            out = banks[slot.bank].clone()
-            out[idx, rec_row, slot.col] = torch.from_numpy(enc).to(self.device)
-            banks[slot.bank] = out
-        used = rec.used
-        if mark_used:
-            used = used.clone()
-            used[idx, rec_row] = True
-        rec = RecordState(i32=banks[Bank.I32], f32=banks[Bank.F32],
-                          vec=banks[Bank.VEC], used=used)
-        return with_class(
-            state, class_name, cs.replace(records={**cs.records, record_name: rec})
-        )
+            banks[slot.bank] = _scatter(banks[slot.bank], (idx, rec_row, slot.col), enc)
+        used = _scatter(rec.used, (idx, rec_row), True) if mark_used else rec.used
+        rec = RecordState(i32=banks[Bank.I32], f32=banks[Bank.F32], vec=banks[Bank.VEC],
+                          used=used)
+        state = self._with_record(state, class_name, record_name, rec)
+        self._fire_record(class_name, record_name, RecordOp.UPDATE, rows, rec_row,
+                          tuple(col_values))
+        return state
+
+    def _record_write(self, state: WorldState, class_name: str, row: int, record_name: str,
+                      rec_row: int, row_values: Dict[str, Value]) -> WorldState:
+        rs = self._rec(class_name, record_name)
+        rec = state.classes[class_name].records[record_name]
+        banks = {Bank.I32: rec.i32, Bank.F32: rec.f32, Bank.VEC: rec.vec}
+        written = set()
+        for tag, v in row_values.items():
+            slot = rs.cols[tag]
+            if slot.bank not in written:
+                banks[slot.bank] = banks[slot.bank].clone()
+                written.add(slot.bank)
+            enc = self.encode(slot.col_def.type, v)
+            banks[slot.bank][row, rec_row, slot.col] = (
+                torch.from_numpy(enc).to(self.device) if isinstance(enc, np.ndarray)
+                else enc.item())
+        rec = rec.replace(i32=banks[Bank.I32], f32=banks[Bank.F32], vec=banks[Bank.VEC])
+        return self._with_record(state, class_name, record_name, rec)
 
     # -- column views -------------------------------------------------------
 
     def column(self, state: WorldState, class_name: str, prop_name: str) -> torch.Tensor:
         """Whole property column [C] (or [C, 3] for vectors)."""
         slot = self.spec(class_name).slot(prop_name)
+        return getattr(state.classes[class_name], slot.bank.value)[:, slot.col]
+
+    def with_column(self, state: WorldState, class_name: str, prop_name: str,
+                    col: torch.Tensor) -> WorldState:
+        slot = self.spec(class_name).slot(prop_name)
         cs = state.classes[class_name]
-        if slot.bank == Bank.I32:
-            return cs.i32[:, slot.col]
-        if slot.bank == Bank.F32:
-            return cs.f32[:, slot.col]
-        return cs.vec[:, slot.col]
+        bank = slot.bank.value
+        return with_class(state, class_name,
+                          cs.replace(**{bank: set_column(getattr(cs, bank), slot.col, col)}))

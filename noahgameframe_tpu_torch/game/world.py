@@ -6,6 +6,8 @@ level, movement, combat, regen and telemetry.  There is no plugin
 manager here: :meth:`GameWorld.start` drives the module lifecycle
 itself, in the order the JAX package's plugin manager does (which fixes
 the timer slots), and :meth:`GameWorld.run` is its frame loop.
+:meth:`GameWorld.save` and :meth:`GameWorld.load` checkpoint the world in
+the JAX package's format (persist/checkpoint.py).
 
 ``build_benchmark_world`` is BASELINE config 4 (AoE damage plus stat
 recompute) at ~0.4 NPCs per world unit², the world ``bench.py`` times.
@@ -23,6 +25,7 @@ from ..core.store import StoreConfig
 from ..kernel.kernel import Kernel
 from ..kernel.module import LIFECYCLE, Module
 from ..kernel.scene import SceneModule
+from ..persist.checkpoint import load_world, save_world
 from ..telemetry.module import TelemetryModule
 from .combat import CombatModule
 from .defines import COMM_PROPERTY_RECORD, PropertyGroup
@@ -125,6 +128,23 @@ class GameWorld:
                 getattr(m, phase)()
         self._started = True
         return self
+
+    @property
+    def all_modules(self) -> List[Module]:
+        """Every module of the world: the ``modules`` argument of
+        persist.checkpoint's save_world/load_world, so module host state
+        survives a resume."""
+        return list(self.modules)
+
+    def save(self, path) -> dict:
+        """Checkpoint the world into the directory ``path`` (see
+        persist.checkpoint.save_world, whose timing split it returns)."""
+        return save_world(self.kernel, path, modules=self.all_modules)
+
+    def load(self, path) -> dict:
+        """Restore a checkpoint saved by either package into this world
+        (see persist.checkpoint.load_world, whose timing split it returns)."""
+        return load_world(self.kernel, path, modules=self.all_modules)
 
     # -- seeding --------------------------------------------------------------
 

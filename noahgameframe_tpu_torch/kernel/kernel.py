@@ -30,11 +30,15 @@ digest, K) is part of each capture's key, and :meth:`invalidate` drops
 every captured graph and the registered aux entries, as the JAX package
 drops its compiled tick.
 
+The host control plane is the JAX package's: ``create_object`` runs the
+seven-event create chain, ``destroy_object`` fires BEFORE_DESTROY and
+DESTROY (or defers to the end of the frame, flushed by :meth:`execute`),
+and ``set_property`` fires host property subscribers synchronously.
 Deaths found on the device free their rows on the host and fire
-``ObjectEvent.DESTROY`` to class-event subscribers.  Not ported here: host
-object creation and destruction (``create_object``/``destroy_object``),
-the plugin manager (``GameWorld.start`` drives the module lifecycle),
-journaling, record-diff and property subscribers.
+``ObjectEvent.DESTROY``; property subscribers also hear the tick's
+changes through its diff masks.  Not ported here: the plugin manager
+(``GameWorld.start`` drives the module lifecycle), journaling, forced
+diff columns and record-diff subscribers.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.datatypes import Bank, Guid
+from ..core.datatypes import Bank, Guid, Value
 from ..core.device import resolve_device
 from ..core.element import ElementStore
 from ..core.prng import MASK32, fold_in
@@ -77,6 +81,7 @@ class ObjectEvent(enum.IntEnum):
 
 
 ClassEventFn = Callable[[Guid, str, "ObjectEvent"], None]
+PropertyEventFn = Callable[[str, str, np.ndarray], None]  # (class, prop, changed_rows)
 
 # Every per-tick output lane of Kernel._step that host code consumes must
 # match one of these patterns: a K-tick train stacks exactly these lanes
@@ -270,6 +275,9 @@ class Kernel(Module):
         self._modules: List[Module] = []
         self._diff_cols: Dict[str, Dict[str, torch.Tensor]] = {}
         self._class_event_subs: List[ClassEventFn] = []
+        self._class_event_by_class: Dict[str, List[ClassEventFn]] = {}
+        self._prop_event_subs: Dict[Tuple[str, str], List[PropertyEventFn]] = {}
+        self._pending_destroy: List[Guid] = []
         # the capture and launch ledger of every entry point (tick, run,
         # train); TelemetryModule.attach_kernel adopts it
         self.costbook = CostBook()
@@ -683,16 +691,121 @@ class Kernel(Module):
                 dead = self.store.reconcile_deaths(self.state, cname)
             for g in dead:
                 self._fire_class_event(g, cname, ObjectEvent.DESTROY)
+        # property subscribers, at batch granularity, from the diff masks
+        diff_counts = dict(zip(sorted(out.diff_count), summary[n_cls:off]))
+        for (cname, pname), fns in self._prop_event_subs.items():
+            masks = out.diff.get(cname)
+            if not masks or not int(diff_counts[cname]):
+                continue
+            slot = self.store.spec(cname).slot(pname)
+            m = masks.get(slot.bank.value)
+            if m is None:
+                continue
+            rows = np.flatnonzero(m[:, slot.col].cpu().numpy())
+            if rows.size:
+                for fn in fns:
+                    fn(cname, pname, rows)
 
     # -- object lifecycle (host control plane) ------------------------------
 
-    def register_class_event(self, fn: ClassEventFn) -> None:
-        """Subscribe to every class's create/destroy chain."""
-        self._class_event_subs.append(fn)
+    def create_object(self, class_name: str, values: Optional[Dict[str, Value]] = None,
+                      guid: Optional[Guid] = None, scene: int = 0, group: int = 0) -> Guid:
+        """Create one object and run the full create chain (reference
+        NFCKernelModule.cpp:251-267): SceneID, GroupID, ClassName and ID
+        default as in the JAX package."""
+        spec = self.store.spec(class_name)
+        vals = dict(values or {})
+        if spec.has_property("SceneID"):
+            vals.setdefault("SceneID", scene)
+        if spec.has_property("GroupID"):
+            vals.setdefault("GroupID", group)
+        if spec.has_property("ClassName"):
+            vals.setdefault("ClassName", class_name)
+        self.state, g, _ = self.store.create_object(self.state, class_name, guid, vals)
+        if spec.has_property("ID"):
+            self.state = self.store.set_property(self.state, g, "ID", str(g))
+        for ev in (
+            ObjectEvent.CREATE_NODATA,
+            ObjectEvent.CREATE_LOADDATA,
+            ObjectEvent.CREATE_BEFORE_EFFECT,
+            ObjectEvent.CREATE_EFFECTDATA,
+            ObjectEvent.CREATE_AFTER_EFFECT,
+            ObjectEvent.CREATE_HASDATA,
+            ObjectEvent.CREATE_FINISH,
+        ):
+            self._fire_class_event(g, class_name, ev)
+        return g
 
-    def _fire_class_event(self, guid: Guid, class_name: str, ev: ObjectEvent) -> None:
-        for fn in self._class_event_subs:
-            fn(guid, class_name, ev)
+    def create_from_element(self, class_name: str, elem_id: str,
+                            overrides: Optional[Dict[str, Value]] = None,
+                            scene: int = 0, group: int = 0) -> Guid:
+        """Create seeded from element config (the element's property
+        values, its ConfigID, then ``overrides``)."""
+        e = self.elements.element(elem_id)
+        vals = dict(e.values)
+        vals["ConfigID"] = elem_id
+        vals.update(overrides or {})
+        spec = self.store.spec(class_name)
+        vals = {k: v for k, v in vals.items() if spec.has_property(k)}
+        return self.create_object(class_name, vals, scene=scene, group=group)
+
+    def destroy_object(self, guid: Guid, deferred: bool = False) -> None:
+        """Destroy now, or at the end of the current frame if deferred
+        (reference NFCKernelModule.cpp:273-308)."""
+        if deferred:
+            self._pending_destroy.append(guid)
+            return
+        class_name, _ = self.store.row_of(guid)
+        self._fire_class_event(guid, class_name, ObjectEvent.BEFORE_DESTROY)
+        self.state = self.store.destroy_object(self.state, guid)
+        self._fire_class_event(guid, class_name, ObjectEvent.DESTROY)
+
+    def flush_pending_destroy(self) -> int:
+        n = 0
+        for g in self._pending_destroy:
+            if g in self.store.guid_map:
+                self.destroy_object(g)
+                n += 1
+        self._pending_destroy.clear()
+        return n
 
     def execute(self) -> None:
+        self.flush_pending_destroy()
         self.events.execute()
+
+    # -- property access with host-callback parity --------------------------
+
+    def set_property(self, guid: Guid, prop_name: str, value: Value) -> None:
+        """Host-originated write; fires property subscribers synchronously
+        (the reference's SetProperty -> OnEventHandler chain)."""
+        class_name, row = self.store.row_of(guid)
+        old = self.store.get_property(self.state, guid, prop_name)
+        self.state = self.store.set_property(self.state, guid, prop_name, value)
+        if old != value:
+            for fn in self._prop_event_subs.get((class_name, prop_name), ()):
+                fn(class_name, prop_name, np.asarray([row]))
+
+    def get_property(self, guid: Guid, prop_name: str) -> Value:
+        return self.store.get_property(self.state, guid, prop_name)
+
+    # -- event registration --------------------------------------------------
+
+    def register_class_event(self, fn: ClassEventFn, class_name: Optional[str] = None) -> None:
+        """Subscribe to create/destroy chains: all classes, or one."""
+        if class_name is None:
+            self._class_event_subs.append(fn)
+        else:
+            self._class_event_by_class.setdefault(class_name, []).append(fn)
+
+    def register_property_event(self, class_name: str, prop_name: str,
+                                fn: PropertyEventFn) -> None:
+        """Subscribe to a property's changes: called with the changed rows
+        after each tick (diff-flagged columns) and on each host write."""
+        self.store.spec(class_name).slot(prop_name)  # validate
+        self._prop_event_subs.setdefault((class_name, prop_name), []).append(fn)
+
+    def _fire_class_event(self, guid: Guid, class_name: str, ev: ObjectEvent) -> None:
+        for fn in self._class_event_by_class.get(class_name, ()):
+            fn(guid, class_name, ev)
+        for fn in self._class_event_subs:
+            fn(guid, class_name, ev)

@@ -74,6 +74,19 @@ class Module:
         graphs on them: a change captures the tick again."""
         return {}
 
+    # -- checkpoint hooks (host state) ---------------------------------------
+
+    def checkpoint_state(self) -> Optional[dict]:
+        """JSON-serializable host state to include in a world checkpoint
+        (persist/checkpoint.py).  Device state checkpoints automatically;
+        modules holding host-side maps override this so a resume really
+        resumes.  None = nothing to save."""
+        return None
+
+    def restore_state(self, data: dict) -> None:
+        """Inverse of checkpoint_state, called after the device state and
+        identity maps are restored (guids resolve again)."""
+
     # -- device phase registration ------------------------------------------
 
     def add_phase(self, name: str, fn: PhaseFn, order: int = 100) -> None:

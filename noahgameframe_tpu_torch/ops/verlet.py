@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.rounding import fma32
 from .stencil import (
     CellTable,
@@ -84,9 +85,11 @@ def skin_from_env(default: float = 0.0) -> float:
         return float(default)
 
 
-def init_cache(n: int, device="cpu") -> VerletCache:
-    """A never-built cache: its all-False anchor mask disagrees with any
-    live world, so the first refresh rebuilds."""
+def init_cache(n: int, device=None) -> VerletCache:
+    """A never-built cache on ``device`` (``None`` = ``"cuda"``): its
+    all-False anchor mask disagrees with any live world, so the first
+    refresh rebuilds."""
+    device = resolve_device(device)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)

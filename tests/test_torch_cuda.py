@@ -366,3 +366,65 @@ def test_rooms_on_the_card_match_the_cpu(cuda, engine):
     for entry in ("rooms.step", "rooms.run"):
         assert gpu.costbook.entries[entry].last["graph"] is True
         assert gpu.costbook.entries[entry].last["kernel_launches_per_replay"][name] == 1
+
+
+def _settled(n, device, ticks=20):
+    """The main path's recipe with the digest on, settled ``ticks`` frames
+    (the overflow auto-resize is host state a checkpoint does not carry)."""
+    w = build_benchmark_world(n, seed=0, device=device)
+    w.kernel.enable_digest()
+    w.run(ticks)
+    return w
+
+
+def _stream(w, n):
+    return [w.tick().counters["state_digest"] for _ in range(n)]
+
+
+def _captures(k):
+    return {n: k.costbook.entry(n).compiles for n in ("kernel.step", "kernel.run")}
+
+
+def test_checkpoint_rewind_and_fresh_world_on_cuda(cuda, tmp_path):
+    """At 65,536 NPCs on the card: a world captured as a CUDA graph saves,
+    ticks, and rewound by load repeats its stream and graph run with no
+    new capture; a fresh settled world loading the checkpoint ticks the
+    same stream under engines 1 and 2, and its graph run ends on the
+    same digest."""
+    w = _settled(65_536, cuda)
+    k = w.kernel
+    k.run_device(5)
+    w.save(tmp_path / "ck")
+
+    def run():
+        s = _stream(w, 10)
+        k.run_device(10)
+        return s, _digest(k)
+
+    first = run()
+    before = _captures(k)
+    w.load(tmp_path / "ck")
+    assert run() == first
+    assert _captures(k) == before
+    f = _settled(65_536, cuda)
+    for engine in (1, 2):
+        f.combat.use_pallas = engine
+        f.load(tmp_path / "ck")
+        assert _stream(f, 10) == first[0], engine
+    f.combat.use_pallas = None
+    f.load(tmp_path / "ck")
+    f.kernel.run_device(10)
+    f.tick()
+    w.load(tmp_path / "ck")
+    k.run_device(10)
+    w.tick()
+    assert f.kernel.last_counters["state_digest"] == k.last_counters["state_digest"]
+
+
+def test_checkpoint_saved_on_cuda_resumes_on_cpu(cuda, tmp_path):
+    """A checkpoint saved on the card resumes on the CPU: equal streams."""
+    a = _settled(4096, cuda, ticks=10)
+    a.save(tmp_path / "ck")
+    b = _settled(4096, "cpu", ticks=10)
+    b.load(tmp_path / "ck")
+    assert _stream(a, 20) == _stream(b, 20)

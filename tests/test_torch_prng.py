@@ -16,7 +16,7 @@ def _u32(key) -> np.ndarray:
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prng_key_and_fold_in_chain(seed):
-    jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed)
+    jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed, "cpu")
     np.testing.assert_array_equal(_u32(jk), tk.numpy())
     # the tick folds the tick number, then each phase call its position
     for data in (0, 1, 5, 29, 2**31 + 3, 2**32 - 1):
@@ -29,7 +29,7 @@ def test_prng_key_and_fold_in_chain(seed):
 def test_uniform_bits_equal(seed, n):
     key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
     want = np.asarray(jax.random.uniform(key, (n, 2), minval=0.0, maxval=1581.1388))
-    got = prng.uniform(prng.fold_in(prng.prng_key(seed), 3), (n, 2), 0.0, 1581.1388).numpy()
+    got = prng.uniform(prng.fold_in(prng.prng_key(seed, "cpu"), 3), (n, 2), 0.0, 1581.1388).numpy()
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
@@ -39,7 +39,7 @@ def test_fold_in_takes_a_device_tick():
     folding the same number from the host."""
     import torch
 
-    key = prng.prng_key(11)
+    key = prng.prng_key(11, "cpu")
     np.testing.assert_array_equal(
         prng.fold_in(key, torch.tensor(41, dtype=torch.int32)).numpy(),
         prng.fold_in(key, 41).numpy())

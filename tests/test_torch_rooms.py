@@ -64,7 +64,7 @@ def _port_batch(engine=0):
     batch = RoomBatch(w.kernel, ROOMS)
     packer = RoomBinPacker(batch.capacity)
     for i in range(ROOMS):
-        batch.admit(packer.alloc(), w.kernel.state.replace(rng=prng_key(50 + i)))
+        batch.admit(packer.alloc(), w.kernel.state.replace(rng=prng_key(50 + i, "cpu")))
     return batch
 
 

@@ -24,7 +24,7 @@ def _t(a):
 
 
 def _anchored(pos, active, cell=4.0, width=8, bucket=8, skin=1.0):
-    cache, rebuilt = tv.refresh(tv.init_cache(pos.shape[0]), _t(pos), _t(active), cell,
+    cache, rebuilt = tv.refresh(tv.init_cache(pos.shape[0], "cpu"), _t(pos), _t(active), cell,
                                 width, bucket, skin)
     assert int(rebuilt) == 1  # a fresh cache always builds
     return cache
@@ -93,7 +93,7 @@ def test_cached_tables_match_pair_tables(monkeypatch, mode):
     pos0 = rng.uniform(1, width * cell - 1, (n, 2)).astype(np.float32)
     active = rng.random(n) < 0.8
     feats = rng.normal(size=(n, 3)).astype(np.float32)
-    tc, _ = tv.refresh(tv.init_cache(n), _t(pos0), _t(active), cell, width, 12, 2.0)
+    tc, _ = tv.refresh(tv.init_cache(n, "cpu"), _t(pos0), _t(active), cell, width, 12, 2.0)
     jc, _ = jv.refresh(jv.init_cache(n), jnp.asarray(pos0), jnp.asarray(active), cell,
                        width, 12, 2.0)
     pos1 = pos0 + rng.uniform(-0.4, 0.4, (n, 2)).astype(np.float32)

@@ -113,3 +113,23 @@ def test_default_device_is_cuda(monkeypatch):
         torch_world(64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GameWorld()
+
+
+def test_store_key_and_verlet_cache_default_to_cuda(monkeypatch):
+    """EntityStore(), prng_key(seed) and init_cache(n) without a device
+    mean "cuda": without a card each raises, and each builds on the CPU
+    only when asked for it by name."""
+    from noahgameframe_tpu_torch.core.prng import prng_key
+    from noahgameframe_tpu_torch.core.store import EntityStore
+    from noahgameframe_tpu_torch.game.schema import standard_registry
+    from noahgameframe_tpu_torch.ops.verlet import init_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    reg = standard_registry()
+    for make in (lambda **kw: EntityStore(reg, **kw), lambda **kw: prng_key(7, **kw),
+                 lambda **kw: init_cache(16, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert EntityStore(reg, device="cpu").init_state().rng.device.type == "cpu"
+    assert prng_key(7, device="cpu").device.type == "cpu"
+    assert init_cache(16, device="cpu").order.device.type == "cpu"
