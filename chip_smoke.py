@@ -63,7 +63,31 @@ non-zero without printing a result:
    plane's times at 1M (a create, a write, a destroy; 32 players saved and
    reloaded by a PlayerDataAgent on FileKV, each equal to what was saved),
    with the card's name and power limit.  The kernel table gains each
-   kernel's launches in the resumed runs (``resumed_launches``).
+   kernel's launches in the resumed runs (``resumed_launches``);
+(h) the scene and host layer at 1M (run after (f)): two worlds of the
+   main path's recipe (engine 1, sort, no skin, digest on, settled 20
+   observed frames, the same seed, so the same state) take the same
+   seeded script of host operations in six batches (40 NPCs destroyed, a
+   second scene with four seeds, eight groups seeding 32 NPCs into the
+   recycled rows, 32
+   players entering and swapping groups and a clone scene, 96 skills,
+   timers, add_exp across two level-ups, the stat API, two group
+   releases, a forced ``LastAttacker`` diff column, record-diff
+   subscribers on ``CommPropertyValue``, ``arm_all(stagger=False)``),
+   with 10 observed ticks after each: world A as one graph train a
+   batch, world B as eager ticks.  Their digest streams, subscriber logs
+   (scene hooks, class events, property rows, record codes, host record
+   ops) and scene answers are equal; A re-captured once per invalidating
+   op, each with its cause; one ``combat_fold`` a replayed tick.  Then
+   engine 2 (graph) against engine 1 (eager) over 30 ticks of the
+   script's end state, the graph tick and the observed graph tick before
+   and after the subscribers (with the record diff's byte bound), the
+   median host time of each op kind, and the script at 4,096 NPCs on
+   cuda and on cpu with equal streams, logs and answers.  Last, BASELINE
+   config 3 (``neighbor_counts`` over 500k NPCs) and the interest query
+   of 4,096 observers over the 1M world (fresh and Verlet-cached), each
+   equal to the CPU and timed.  The kernel table gains each kernel's
+   launches on this path (``host_layer_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -88,11 +112,14 @@ import torch
 from noahgameframe_tpu_torch.core import tree
 from noahgameframe_tpu_torch.core.prng import prng_key
 from noahgameframe_tpu_torch.game import world as gw
+from noahgameframe_tpu_torch.game.defines import PropertyGroup
+from noahgameframe_tpu_torch.kernel import scene as gsc
 from noahgameframe_tpu_torch.kernel import kernel as km
 from noahgameframe_tpu_torch.ops import stencil as sc
 from noahgameframe_tpu_torch.ops import stencil_cuda as sck
 from noahgameframe_tpu_torch.parallel import rooms
 from noahgameframe_tpu_torch.persist import FileKV, PlayerDataAgent
+from noahgameframe_tpu_torch.telemetry.costbook import WARMUP_RUNS
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # rate outside the tensor cores
@@ -102,6 +129,7 @@ PEAK_F32_PER_S = 67e12
 FLOPS_PER_PAIR = 5
 
 N_MAIN = 1_000_000
+N_AOI = 500_000  # BASELINE config 3's AOI scan
 ROOMS_MAIN = 16_384  # the rooms path: 16,384 rooms of 64 NPC rows
 SEED = 0
 DEV = "cuda"
@@ -1260,6 +1288,449 @@ def phase_persist(card: str):
         free()
 
 
+# -- (h) the scene and host layer at 1M -------------------------------------------
+
+#: the 1M record-diff subscriber's record (~76% of the world's bytes)
+BIG_RECORD = "CommPropertyValue"
+H_BATCHES = 6
+H_TICKS = 10  # graph ticks (one train dispatch) after each batch
+
+
+class Idents:
+    """A world-independent name for each guid, ``class:row:generation``
+    (two worlds built from one seed mint different guids for the same
+    rows); names of destroyed guids are remembered from their last sight."""
+
+    def __init__(self, world):
+        self.store = world.kernel.store
+        self.seen = {}
+
+    def __call__(self, g):
+        st = self.store
+        if g in st.guid_map:
+            cname, row = st.row_of(g)
+            self.seen[g] = f"{cname}:{row}:{int(st._hosts[cname].row_gen[row])}"
+        return self.seen.get(g, "null" if g.is_null() else "unknown")
+
+
+def _h(arr) -> str:
+    """A short digest of an integer array's bytes (the 1M logs stay small)."""
+    import hashlib
+    a = np.ascontiguousarray(np.asarray(arr))
+    return f"{a.shape}:{hashlib.sha1(a.tobytes()).hexdigest()[:16]}"
+
+
+def host_layer_world(n: int, device: str, ticks: int = 20):
+    """The main path's world (engine 1, sort, no skin), digest on, settled
+    ``ticks`` observed frames, plus the host layer's set-up: the skill,
+    seed and clone-scene elements, a linear job-0 level table (its freeze
+    invalidates, before any capture) and pinned guids."""
+    w = gw.build_benchmark_world(n, seed=SEED, device=device)
+    w.kernel.enable_digest()
+    w.run(ticks)
+    k = w.kernel
+    k.elements.add_element("Skill", "fireball", {"DamageValue": 10})
+    k.elements.add_element("NPC", "grunt", {"HP": 60, "MAXHP": 60, "SeedID": "grunt"})
+    k.elements.add_element("Scene", "7", {"SceneType": 1})
+    w.property_config.fill_linear(
+        0, {"MAXHP": 100, "MAXMP": 20, "MAXSP": 10, "HPREGEN": 2},
+        {"MAXHP": 10, "MAXMP": 2, "MAXSP": 1}, max_exp_base=40, max_exp_per_level=15)
+    w.property_config.freeze()
+    k.store.guids.pin(10 ** 12)
+    return w
+
+
+def host_layer_script(w, ident, log, answers, times, sync):
+    """The six batches of host operations (closures, applied in order
+    between tick windows).  Every call is timed by kind (``sync`` around
+    it); subscribers log into ``log``, queries into ``answers``."""
+    k, sc, st = w.kernel, w.scene, w.kernel.store
+    rng = np.random.default_rng(SEED + 7)
+    ext = w.config.extent
+    players = []
+    state = {}
+
+    def op(kind, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times.setdefault(kind, []).append(time.perf_counter() - t0)
+        return out
+
+    def npc_rows(count):
+        alive = np.flatnonzero(st._hosts["NPC"].alloc_mask)
+        return rng.choice(alive, count, replace=False)
+
+    def npc(row):
+        return st._hosts["NPC"].row_guid[int(row)]
+
+    def record_answers(tag):
+        groups = sorted(sc.scenes[2].groups)
+        answers.append((tag, {g: [ident(x) for x in sc.objects_in_group(2, g, "NPC")]
+                              for g in groups}))
+        for p in players[::5]:
+            if p in st.guid_map:
+                answers.append((tag, ident(p),
+                                op("broadcast_targets",
+                                   lambda p=p: [ident(x) for x in sc.broadcast_targets(p, True)]),
+                                op("objects_in_group", lambda p=p: [ident(x) for x in sc.objects_in_group(
+                                    int(k.get_property(p, "SceneID")),
+                                    int(k.get_property(p, "GroupID")), "Player")])))
+
+    def subscribe():
+        for name in ("before_enter_scene", "after_enter_scene", "before_leave_scene",
+                     "after_leave_scene", "on_swap_group"):
+            getattr(sc, name).append(
+                lambda g, s, gr, name=name: log.append(("hook", name, ident(g), s, gr)))
+        sc.on_group_created.append(lambda s, gr: log.append(("group", s, gr)))
+        k.register_class_event(lambda g, c, ev: log.append(("class", ident(g), c, int(ev))))
+        for cname, pname in (("Player", "SceneID"), ("Player", "GroupID"), ("Player", "Level")):
+            k.register_property_event(cname, pname, lambda c, p_, rows: log.append(
+                ("prop", c, p_, rows.tolist())))
+
+    def batch0():
+        subscribe()
+        # 40 rows freed: 32 for the groups' seeds, 4 for the clone scene's
+        dead = npc_rows(40)
+        for row in dead:
+            g = npc(row)
+            op("destroy_object", lambda g=g: k.destroy_object(g))
+        seeds = [gsc.SeedSpec("grunt", "NPC", (ext * fx, ext * fy, 0.0))
+                 for fx, fy in ((0.21, 0.33), (0.47, 0.52), (0.66, 0.18), (0.83, 0.77))]
+        op("create_scene", lambda: sc.create_scene(2, seeds=seeds, width=ext))
+        op("create_scene", lambda: sc.create_scene(7, seeds=seeds[:2], width=ext))
+        gids = [op("request_group", lambda: sc.request_group(2)) for _ in range(8)]
+        seeded = sorted(st.row_of(g)[1] for gid in gids for g in sc.scenes[2].groups[gid].seeded)
+        check(len(seeded) == 32 and set(seeded) <= {int(r) for r in dead},
+              "the 32 seeded NPCs took recycled rows")
+        for i in range(32):
+            vals = {"Name": f"hero{i}", "Account": f"acct{i}", "Gold": 100 + i,
+                    "Position": (ext * rng.random(), ext * rng.random(), 0.0)}
+            players.append(op("create_object_player",
+                              lambda vals=vals: k.create_object("Player", vals, scene=1)))
+        answers.append(("groups", gids, seeded))
+        record_answers("b0")
+
+    def batch1():
+        gids = sorted(g for g in sc.scenes[2].groups if g)
+        for i, p in enumerate(players[:16]):
+            op("enter_scene", lambda p=p, i=i: sc.enter_scene(p, 2, gids[i % len(gids)]))
+        op("enter_scene", lambda: sc.enter_scene(players[0], 2, gids[3]))  # a same-scene swap
+        for p in players[16:18]:
+            answers.append(("clone", ident(p),
+                            op("scene_process_enter", lambda p=p: w.scene_process.enter(p, 7))))
+        op("force_diff_property", lambda: k.force_diff_property("NPC", "LastAttacker"))
+        k.register_property_event("NPC", "LastAttacker", lambda c, p_, rows: log.append(
+            ("forced", c, p_, _h(rows))))
+        record_answers("b1")
+
+    def batch2():
+        for i in range(64):
+            g = npc(npc_rows(1)[0])
+            answers.append(("skill", op("use_skill", lambda g=g, i=i: w.skills.use_skill(
+                players[i % 32], "fireball" if i % 9 else "nope", g))))
+        for p in players[20:24]:
+            op("set_timer", lambda p=p: setattr(k, "state", k.schedule.set_timer(
+                k.state, st, p, "Regen", 0.5, 3, 0.1)))
+        for p in players[20:22]:
+            op("cancel_timer", lambda p=p: setattr(k, "state", k.schedule.cancel_timer(
+                k.state, st, p, "Regen")))
+        for p in players[24:28]:
+            op("regen_arm", lambda p=p: w.regen.arm(p))
+
+        def codes(c, r, arr):
+            nz = np.flatnonzero(arr)
+            log.append(("rec_diff", c, r, nz.tolist()[:64], _h(nz), _h(arr.reshape(-1)[nz])))
+
+        op("register_record_diff", lambda: k.register_record_diff("NPC", BIG_RECORD, codes))
+        state["codes"] = codes
+        op("subscribe_record_host", lambda: k.subscribe_record_host(
+            lambda c, r, o, rows, rr, tags: log.append(
+                ("rec_host", c, r, int(o), rows.tolist(), rr, tags))))
+
+    def batch3():
+        # the players' record too (its own first subscription), so the
+        # device level-up below shows in the codes
+        op("register_record_diff", lambda: k.register_record_diff(
+            "Player", BIG_RECORD, state["codes"]))
+        before = int(k.get_property(players[0], "Level"))
+        level = op("add_exp", lambda: w.level.add_exp(players[0], 200))
+        check(level >= before + 2, f"add_exp crossed two level-ups ({before} -> {level})")
+        op("add_exp", lambda: w.level.add_exp(players[1], 30))
+        # a device level-up: the level phase rewrites the JOBLEVEL row,
+        # which the host marks used first, so the codes report it
+        row2 = st.row_of(players[2])[1]
+        op("record_write_rows", lambda: setattr(k, "state", st.record_write_rows(
+            k.state, "Player", np.asarray([row2]), BIG_RECORD, int(PropertyGroup.JOBLEVEL),
+            {"MAXHP": [100]})))
+        op("set_property", lambda: k.set_property(players[2], "EXP", 500))
+        props = w.properties
+        for p in players[:8]:
+            answers.append(("stat", ident(p),
+                            op("add_hp", lambda p=p: props.add_hp(p, 15)),
+                            op("consume_money", lambda p=p: props.consume_money(p, 30)),
+                            op("enough_sp", lambda p=p: props.enough_sp(p, 1))))
+        answers.append(("levels", [(k.get_property(p, "Level"), k.get_property(p, "EXP"),
+                                    k.get_property(p, "MAXHP")) for p in players[:4]]))
+
+    def batch4():
+        gids = sorted(g for g in sc.scenes[2].groups if g)
+        for gid in gids[:2]:
+            answers.append(("release", gid, op("release_group", lambda gid=gid: sc.release_group(2, gid))))
+        op("arm_all", lambda: w.combat.arm_all(stagger=False))
+        record_answers("b4")
+
+    def batch5():
+        for p in players[16:24]:
+            if p in st.guid_map:
+                op("enter_scene", lambda p=p: sc.enter_scene(p, 1, 0))
+        live = [p for p in players if p in st.guid_map]  # releases took some
+        for i in range(32):
+            g = npc(npc_rows(1)[0])
+            answers.append(("skill", op("use_skill", lambda g=g, i=i: w.skills.use_skill(
+                live[i % len(live)], "fireball", g))))
+        record_answers("b5")
+
+    return [batch0, batch1, batch2, batch3, batch4, batch5]
+
+
+def run_host_script(w, advance, sync):
+    """The script on one world, ``advance(n)`` ticking n observed frames
+    after each batch.  Returns the digest stream, the subscriber log, the
+    answers and the host times of each op kind."""
+    ident = Idents(w)
+    log, answers, times, stream = [], [], {}, []
+    for batch in host_layer_script(w, ident, log, answers, times, sync):
+        batch()
+        outs = advance(H_TICKS)
+        stream += [o.counters["state_digest"] & 0xFFFFFFFF for o in outs]
+        log.append(("tick", len(stream)))
+    return {"stream": stream, "log": log, "answers": answers, "times": times}
+
+
+def observed_graph_ticks(k, n: int) -> list:
+    """Device time of n observed graph ticks (``train`` with K = 1): CUDA
+    events around each dispatch, its host fan-out outside the window."""
+    k.configure_train(1)
+    k.train(1)  # captures
+    out = []
+    for _ in range(n):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        raw = k.train_begin()
+        e1.record()
+        k.train_finish(raw)
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def _stats(xs) -> dict:
+    return {"mean_ms": statistics.fmean(xs), "median_ms": statistics.median(xs)}
+
+
+def phase_host_layer(card: str):
+    """(h).1 and (h).2: the script of host operations on the 1M world, as
+    graph trains (world A) and as eager observed ticks (world B, the same
+    recipe and seed, so the same snapshot); then engine 2 on the script's
+    end state, and the script at 4,096 NPCs on cuda and cpu.  Returns each
+    kernel's launches on the host-layer path."""
+    sync = torch.cuda.synchronize
+    a = host_layer_world(N_MAIN, DEV)
+    b = host_layer_world(N_MAIN, DEV)
+    ka, kb = a.kernel, b.kernel
+    # the main path's graph tick and the observed graph tick, no subscribers
+    # (each window's graph captured before it is timed)
+    ka.run_device(1)
+    before_run = tick_times(ka, 30, graph=True)
+    before_obs = observed_graph_ticks(ka, 30)
+    ka.configure_train(H_TICKS)
+    ka.train(H_TICKS)  # the script's train graph, captured before the script
+    kb.run_device(31, graph=False)
+    for _ in range(31 + H_TICKS):  # observed, as A's trains are
+        kb.tick()
+    check(digest(ka) == digest(kb), "the graph and eager worlds start from the same state")
+    entry = ka.costbook.entry("kernel.train")
+    captures0, events0 = entry.compiles, len(ka.costbook.events)
+    gens0 = len(ka.costbook.gen_events)
+    sck.reset_launch_counts()
+    ra = run_host_script(a, ka.train, sync)
+    launches = {n: kk.launches for n, kk in sck.KERNELS.items()}
+    rb = run_host_script(b, lambda n: [kb.tick() for _ in range(n)], sync)
+    recaptures = entry.compiles - captures0
+    causes = [e["cause"] for e in ka.costbook.events[events0:] if e["entry"] == "kernel.train"]
+    gen_causes = [e["cause"] for e in ka.costbook.gen_events[gens0:]]
+    n_ticks = H_BATCHES * H_TICKS
+    check(ra["stream"] == rb["stream"] and len(ra["stream"]) == n_ticks,
+          "graph and eager digest streams equal over the script")
+    check(ra["log"] == rb["log"], "graph and eager subscriber logs equal")
+    check(ra["answers"] == rb["answers"], "graph and eager scene answers equal")
+    kinds = {e[0] for e in ra["log"]}
+    check({"hook", "group", "class", "prop", "forced", "rec_diff", "rec_host"} <= kinds,
+          f"every subscriber heard something ({sorted(kinds)})")
+    check(recaptures == 4 and gen_causes == ["invalidate"] * 4,
+          f"one re-capture per invalidating op ({recaptures}, {causes}, {gen_causes})")
+    check(causes == ["static:forced_diff", "static:rec_diff", "static:rec_diff",
+                     "static:att_bucket"], f"the re-captures name their causes ({causes})")
+    # each re-capture first runs the train eagerly WARMUP_RUNS times
+    warm = WARMUP_RUNS * H_TICKS * recaptures
+    per_replay = entry.last["kernel_launches_per_replay"]["combat_fold"]
+    check(launches["combat_fold"] == n_ticks + warm and per_replay == H_TICKS,
+          f"one combat_fold a replayed tick ({launches}, {warm} in warm-ups, {per_replay})")
+
+    # engine 2 on the script's end state (graph trains) against engine 1
+    # (eager ticks): equal streams, one fused_neighborhood a tick
+    a.combat.use_pallas = 2
+    sck.reset_launch_counts()
+    e2 = [o.counters["state_digest"] & 0xFFFFFFFF for o in ka.train(30)]
+    fused = sck.KERNELS["fused_neighborhood"].launches
+    e1 = [kb.tick().counters["state_digest"] & 0xFFFFFFFF for _ in range(30)]
+    check(e2 == e1, "engine 2 (graph) equals engine 1 (eager) on the host-layer world")
+    check(fused == 30 + WARMUP_RUNS * H_TICKS,
+          f"one fused_neighborhood a replayed tick ({fused}, warm-ups included)")
+    a.combat.use_pallas = None
+
+    # the same ticks with the NPC record-diff subscriber and the forced column
+    after_obs = observed_graph_ticks(ka, 30)
+    ka.run_device(1)
+    after_run = tick_times(ka, 30, graph=True)
+    rec_bytes = 0
+    for cname in ("NPC", "Player"):
+        rec = ka.state.classes[cname].records[BIG_RECORD]
+        # old and new banks read once, the int8 codes written once
+        rec_bytes += 2 * (rec.i32.nbytes + rec.f32.nbytes + rec.vec.nbytes + rec.used.nbytes) \
+            + rec.used.numel()
+    host_ms = {kind: _stats([t * 1e3 for t in ts]) for kind, ts in sorted(ra["times"].items())}
+    del a, b, ka, kb
+    free()
+
+    # (h).2: cuda against cpu at 4,096
+    small = []
+    for dev in (DEV, "cpu"):
+        sw = host_layer_world(4096, dev)
+        sw.kernel.configure_train(H_TICKS)
+        small.append(run_host_script(sw, sw.kernel.train, sync if dev != "cpu" else (lambda: None)))
+        del sw
+    check(small[0]["stream"] == small[1]["stream"], "cuda and cpu digest streams equal at 4,096")
+    check(small[0]["log"] == small[1]["log"], "cuda and cpu subscriber logs equal at 4,096")
+    check(small[0]["answers"] == small[1]["answers"], "cuda and cpu answers equal at 4,096")
+    emit({"phase": "host_layer_1m", "entities": N_MAIN, "card": card, "ticks": n_ticks,
+          "streams_equal": {"graph_vs_eager_1m": True, "cuda_vs_cpu_4096": True,
+                            "engine2_graph_vs_engine1_eager": True},
+          "last_digest": ra["stream"][-1], "log_entries": len(ra["log"]),
+          "log_kinds": sorted(kinds), "recaptures": recaptures, "recapture_causes": causes,
+          "invalidations": gen_causes,
+          "combat_fold_launches": launches["combat_fold"], "warmup_launches": warm,
+          "combat_fold_per_replayed_tick": (launches["combat_fold"] - warm) / n_ticks,
+          "fused_neighborhood_engine2_window": fused,
+          "graph_tick_no_subscribers": _stats(before_run),
+          "graph_tick_after_script": _stats(after_run),
+          "observed_graph_tick_no_subscribers": _stats(before_obs),
+          "observed_graph_tick_with_subscribers": _stats(after_obs),
+          "record_diff_bytes": rec_bytes,
+          "record_diff_bound_ms": rec_bytes / PEAK_BYTES_PER_S * 1e3,
+          "host_op_ms": host_ms,
+          "host_op_calls": {kind: len(ts) for kind, ts in sorted(ra["times"].items())}})
+    return {"combat_fold": launches["combat_fold"], "fused_neighborhood": fused}
+
+
+def phase_aoi_interest(card: str):
+    """(h).3 and (h).4: BASELINE config 3's AOI scan (``neighbor_counts``
+    over the alive NPCs of ``build_benchmark_world(500_000)``, radius and
+    cell 4.0, partitioned by ``cell_key``) and the interest query of 4,096
+    observers at radius 8.0 over the 1M world's NPCs (fresh and Verlet
+    cached, skin 2.0, ``moved`` = the movers of the last frame), each equal
+    to the same call on the CPU (tolerance 0) and timed (mean of 20 by
+    CUDA events)."""
+    from noahgameframe_tpu_torch.ops import aoi, interest
+    from noahgameframe_tpu_torch.ops.verlet import init_cache
+
+    out = {}
+    w = gw.build_benchmark_world(N_AOI, seed=SEED, device=DEV)
+    k = w.kernel
+    spec = k.store.spec("NPC")
+    cs = k.state.classes["NPC"]
+    pos = cs.vec[:, spec.slot("Position").col, :2].contiguous()
+    alive = cs.alive.clone()
+    part = w.scene.cell_key(k.state, "NPC")
+    width = int(w.config.extent / 4.0)
+    bucket = sc.auto_bucket(pos.shape[0], width)
+    args = (pos, alive, 4.0, 4.0, width, bucket, part)
+    got = aoi.neighbor_counts(*args)
+    want = aoi.neighbor_counts(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in args))
+    check(torch.equal(got.cpu(), want) and got.dtype == torch.int32,
+          "neighbor_counts at 500k equals the CPU")
+    check(int(got.sum()) > 0, "the AOI scan found neighbours")
+    # the least work of the scan on its cell table, from this run's data:
+    # the inputs read and the counts written once, the [H, W, K, 6] float32
+    # table written once and read for each of the nine shifts, and 5
+    # float32 operations for each slot pair of a 3x3 neighbourhood tested
+    table = sc.build_cell_table(pos, alive, torch.zeros(pos.shape[0], 5, device=DEV),
+                                4.0, width, bucket)
+    occ = cell_counts(table.slot_of, width, bucket)
+    tests = int((occ * nbhd_sum(occ)).sum())
+    io_bytes = pos.nbytes + alive.nbytes + part.nbytes + got.nbytes
+    table_bytes = table.payload.nbytes
+    bound, by = bound_ms(io_bytes + 10 * table_bytes, 5 * tests)
+    out["neighbor_counts_500k"] = {
+        "entities": int(alive.sum()), "width": width, "bucket": bucket,
+        "pairs": int(got.sum()), "pair_tests": tests, "io_bytes": io_bytes,
+        "table_bytes": table_bytes, "ms": time_ms(lambda: aoi.neighbor_counts(*args)),
+        "bound_ms": bound, "bound_by": by}
+    del w, k, cs, pos, alive, part, got, want, table
+    free()
+
+    w = gw.build_benchmark_world(N_MAIN, seed=SEED, device=DEV)
+    k = w.kernel
+    spec = k.store.spec("NPC")
+    col = spec.slot("Position").col
+    k.run_device(1, graph=False)  # the first tick sets MOVE_SPEED (recompute)
+    p0 = k.state.classes["NPC"].vec[:, col, :2].clone()
+    k.run_device(1, graph=False)
+    cs = k.state.classes["NPC"]
+    pos = cs.vec[:, col, :2].contiguous()
+    moved = (pos != p0).any(-1) & cs.alive
+    scene = cs.i32[:, spec.slot("SceneID").col].float()
+    group = cs.i32[:, spec.slot("GroupID").col].float()
+    rng = np.random.default_rng(SEED + 11)
+    obs_rows = torch.from_numpy(rng.choice(np.flatnonzero(cs.alive.cpu().numpy()), 4096,
+                                           replace=False)).to(DEV)
+    obs = (pos[obs_rows].contiguous(), scene[obs_rows], group[obs_rows])
+    ext, radius, skin = w.config.extent, 8.0, 2.0
+    cap = pos.shape[0]
+    fresh_geo = (radius, radius, int(np.ceil(ext / radius)),
+                 sc.auto_bucket(cap, int(np.ceil(ext / radius))))
+    cell_c = radius + skin
+    cached_geo = (radius, cell_c, int(np.ceil(ext / cell_c)),
+                  sc.auto_bucket(cap, int(np.ceil(ext / cell_c))), skin)
+
+    def fresh(dev):
+        t = [x.to(dev) for x in (pos, moved, scene, group, *obs)]
+        return interest.visible_candidates(*t, *fresh_geo)
+
+    def cached(dev, cache=None):
+        t = [x.to(dev) for x in (pos, moved, cs.alive, scene, group, *obs)]
+        cache = init_cache(cap, dev) if cache is None else cache
+        return interest.visible_candidates_cached(cache, *t, *cached_geo)
+
+    for name, fn in (("visible_candidates", lambda d: fresh(d)),
+                     ("visible_candidates_cached", lambda d: cached(d)[0])):
+        g, c = fn(DEV), fn("cpu")
+        ok = g.ok.cpu()
+        check(torch.equal(ok, c.ok) and bool(ok.any()), f"{name}: ok equals the CPU")
+        check(torch.equal(torch.where(ok, g.rows.cpu(), 0), torch.where(c.ok, c.rows, 0)),
+              f"{name}: rows where ok equal the CPU")
+        out[name] = {"observers": 4096, "candidates": int(ok.sum()), "moved": int(moved.sum()),
+                     "slots": list(g.ok.shape), "ms": time_ms(lambda: fn(DEV))}
+    # the cached form with a warm cache (a reuse, no sort)
+    warm = cached(DEV)[1]
+    out["visible_candidates_cached"]["warm_ms"] = time_ms(lambda: cached(DEV, warm))
+    emit({"phase": "aoi_interest", "card": card, **out})
+    del w, k
+    free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1292,6 +1763,8 @@ def main() -> int:
     rooms_launches = phase_rooms()
     free()
     phase_bench_rooms()
+    host_launches = phase_host_layer(card)
+    phase_aoi_interest(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
@@ -1308,6 +1781,7 @@ def main() -> int:
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": None,
          "resumed_launches": persist_launches[name],
+         "host_layer_launches": host_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

@@ -1,6 +1,7 @@
-"""Combat: AoE damage resolution, NPC death & respawn.
+"""Combat: AoE damage resolution, NPC death & respawn, and skill use.
 
-Counterpart of ``CombatModule`` in ``noahgameframe_tpu/game/combat.py``.
+Counterpart of ``CombatModule`` and ``SkillModule`` in
+``noahgameframe_tpu/game/combat.py``.
 Every alive entity is binned once into the cell tables (ops/stencil.py,
 under the ``NF_BINNING`` engine, or through the Verlet cache of
 ops/verlet.py when a skin is set); every entity then pulls incoming damage
@@ -43,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.datatypes import Guid
 from ..core.store import HANDLE_ROW_BITS, WorldState, set_column, with_class
 from ..kernel.module import Module
 from ..ops.stencil import (
@@ -75,6 +77,7 @@ class CombatModule(Module):
         respawn_s: float = 5.0,
         attack_period_s: float = 1.0,
         order: int = 30,
+        emit_events: bool = True,
         use_pallas: Optional[int] = None,
         verlet_skin: Optional[float] = None,
     ):
@@ -94,11 +97,19 @@ class CombatModule(Module):
         self.bucket = None if bucket is None else int(bucket)
         self.respawn_s = float(respawn_s)
         self.attack_period_s = float(attack_period_s)
-        # overflow surfacing: the tick emits ON_COMBAT_TABLE_OVERFLOW, and
-        # past the budget the host doubles the bucket so the drops stop
+        # False mutes the tick's overflow, be-killed and respawn events
+        self.emit_events = emit_events
+        # overflow surfacing: the tick emits ON_COMBAT_TABLE_OVERFLOW; the
+        # host counts it, alerts past the budget and (auto_resize) doubles
+        # the bucket so the drops stop
         self.overflow_budget = 1e-4  # dropped/alive alert threshold
+        self.auto_resize = True
         self.max_bucket_boost = 8
         self._bucket_boost = 1
+        self.overflow_last = (0, 0)  # (victims, attackers) of the latest tick
+        self.overflow_total = 0
+        self.overflow_alerts = 0
+        self._overflow_log_muted = False
         self.use_pallas = use_pallas
         # fraction of the population the attacker table is sized for:
         # arm_all(stagger=True) lowers it to dt/attack_period
@@ -126,34 +137,56 @@ class CombatModule(Module):
             return {}
         cap = self.kernel.store.capacity(self.class_name)
         return {"engine": self.resolved_engine(), "binning": binning_mode(),
+                "emit_events": self.emit_events,
                 "verlet_skin": self.verlet_skin, "bucket": self.resolved_bucket(cap),
                 "att_bucket": self.resolved_att_bucket(cap)}
 
     def after_init(self) -> None:
-        self.kernel.events.subscribe_batch(
-            int(GameEvent.ON_COMBAT_TABLE_OVERFLOW), self._on_overflow)
+        if self.emit_events:
+            self.kernel.events.subscribe_batch(
+                int(GameEvent.ON_COMBAT_TABLE_OVERFLOW), self._on_overflow)
+
+    def execute(self) -> None:
+        # the overflow event fires only on drops: a drop-free frame reads
+        # (0, 0) (module execute runs before the frame's device step)
+        self.overflow_last = (0, 0)
 
     def _on_overflow(self, cname: str, _mask, params) -> None:
-        """Host side of the overflow signal: on a budget breach double the
-        bucket (up to ``max_bucket_boost``) and invalidate the kernel, which
-        drops the captured tick and the Verlet cache built for the old
-        bucket."""
+        """Host side of the overflow signal: count it, and on a budget
+        breach alert and (``auto_resize``) double the bucket, up to
+        ``max_bucket_boost``, invalidating the kernel, which drops the
+        captured tick and the Verlet cache built for the old bucket.  The
+        terminal state is logged once."""
         dv = int(params["dropped_victims"][0])
         da = int(params["dropped_attackers"][0])
+        self.overflow_last = (dv, da)
+        self.overflow_total += dv + da
         alive = int(self.kernel.store._hosts[cname].alloc_mask.sum())
         if alive <= 0 or (dv + da) / alive <= self.overflow_budget:
             return
-        if self._bucket_boost < self.max_bucket_boost:
+        self.overflow_alerts += 1
+        log = logging.getLogger("nf.combat")
+        if self.auto_resize and self._bucket_boost < self.max_bucket_boost:
             self._bucket_boost *= 2
             self.kernel.invalidate()
-            logging.getLogger("nf.combat").warning(
+            log.warning(
                 "combat cell-table overflow: dropped %d/%d victims+attackers "
                 "(budget %.4f%%) — bucket boosted x%d",
                 dv + da, alive, self.overflow_budget * 100, self._bucket_boost)
+        elif not self._overflow_log_muted:
+            self._overflow_log_muted = True
+            log.warning(
+                "combat cell-table overflow: dropped %d/%d victims+attackers "
+                "(budget %.4f%%) — auto-resize %s; further breaches are "
+                "counted (overflow_alerts) but not logged",
+                dv + da, alive, self.overflow_budget * 100,
+                "exhausted" if self.auto_resize else "disabled")
 
     def arm_all(self, stagger: bool = True) -> None:
         """Arm the attack heartbeat on every live row; stagger=True spreads
-        first firings over the attack period (``1 + row % interval``)."""
+        first firings over the attack period (``1 + row % interval``).  A
+        duty change resizes the attacker table, so it invalidates the
+        kernel (the captured tick and the Verlet cache)."""
         k = self.kernel
         rows = np.flatnonzero(k.state.classes[self.class_name].alive.cpu().numpy())
         interval = k.schedule.ticks_of(self.attack_period_s)
@@ -161,7 +194,10 @@ class CombatModule(Module):
         k.state = k.schedule.set_timer_rows(
             k.state, self.class_name, rows, ATTACK_TIMER, self.attack_period_s,
             start_delay_ticks=delays)
-        self._attacker_duty = (1.0 / interval) if delays is not None else 1.0
+        new_duty = (1.0 / interval) if delays is not None else 1.0
+        if new_duty != self._attacker_duty:
+            self._attacker_duty = new_duty
+            k.invalidate()
 
     def resolved_bucket(self, capacity: int) -> int:
         """The victim cell-table bucket size the combat phase uses."""
@@ -271,15 +307,16 @@ class CombatModule(Module):
         else:
             fold = combat_fold if engine == 1 else combat_fold_plain
             inc, bestr = fold(vic_bin, att_bin, self.radius)
-        # row 0 carries the overflow flag; padded out of place, so it
-        # batches under torch.func.vmap
-        mask0 = torch.nn.functional.pad(
-            ((vic_bin.dropped + att_bin.dropped) > 0).reshape(1), (0, n - 1))
-        ctx.emit(
-            int(GameEvent.ON_COMBAT_TABLE_OVERFLOW), cname, mask0,
-            dropped_victims=vic_bin.dropped.expand(n),
-            dropped_attackers=att_bin.dropped.expand(n),
-        )
+        if self.emit_events:
+            # row 0 carries the overflow flag; padded out of place, so it
+            # batches under torch.func.vmap
+            mask0 = torch.nn.functional.pad(
+                ((vic_bin.dropped + att_bin.dropped) > 0).reshape(1), (0, n - 1))
+            ctx.emit(
+                int(GameEvent.ON_COMBAT_TABLE_OVERFLOW), cname, mask0,
+                dropped_victims=vic_bin.dropped.expand(n),
+                dropped_attackers=att_bin.dropped.expand(n),
+            )
         ctx.count("aoi_victim_overflow_drops", vic_bin.dropped)
         ctx.count("aoi_attacker_overflow_drops", att_bin.dropped)
         pulled = pull_slots(vic_bin.slot_of, torch.stack([inc, bestr], dim=-1), fill=(0, -1))
@@ -317,10 +354,11 @@ class CombatModule(Module):
         dead_tick = cs.i32[:, dead_col]
 
         just_died = cs.alive & (hp <= 0) & (dead_tick == 0)
-        params = {}
-        if spec.has_property("LastAttacker"):
-            params["killer"] = cs.i32[:, spec.slot("LastAttacker").col]
-        ctx.emit(int(GameEvent.ON_OBJECT_BE_KILLED), cname, just_died, **params)
+        if self.emit_events:
+            params = {}
+            if spec.has_property("LastAttacker"):
+                params["killer"] = cs.i32[:, spec.slot("LastAttacker").col]
+            ctx.emit(int(GameEvent.ON_OBJECT_BE_KILLED), cname, just_died, **params)
         # DeadTick stores tick+1 so tick 0 deaths are distinguishable from 0
         i32 = set_column(cs.i32, dead_col, torch.where(just_died, ctx.tick + 1, dead_tick))
 
@@ -335,5 +373,34 @@ class CombatModule(Module):
             due = torch.zeros_like(due)
         i32[:, dead_col] = torch.where(due, 0, i32[:, dead_col])
         ctx.count("respawns", due)
-        ctx.emit(int(GameEvent.ON_NPC_RESPAWN), cname, due)
+        if self.emit_events:
+            ctx.emit(int(GameEvent.ON_NPC_RESPAWN), cname, due)
         return with_class(state, cname, cs.replace(i32=i32))
+
+
+class SkillModule(Module):
+    """Host-side targeted skill use (reference NFCSkillModule parity)."""
+
+    name = "SkillModule"
+
+    def __init__(self, skill_damage: int = 10):
+        super().__init__()
+        self.skill_damage = int(skill_damage)
+
+    def use_skill(self, attacker: Guid, skill_id: str, target: Guid) -> bool:
+        """Validate the skill element, damage the target by
+        ``skill_damage`` (floor 0) and stamp LastAttacker
+        (NFCSkillModule.cpp:113-139)."""
+        k = self.kernel
+        if not k.elements.exists(skill_id):
+            return False
+        if target not in k.store.guid_map:
+            return False
+        tclass, _ = k.store.row_of(target)
+        cur = int(k.get_property(target, "HP"))
+        if cur <= 0:
+            return False
+        if k.store.spec(tclass).has_property("LastAttacker"):
+            k.set_property(target, "LastAttacker", attacker)
+        k.set_property(target, "HP", max(cur - self.skill_damage, 0))
+        return True

@@ -6,7 +6,8 @@ searchsorted over cumulative MAXEXP thresholds
 (PropertyConfigModule.level_from_total_exp).  On a level change the
 NPG_JOBLEVEL stat row is rewritten from the (job, level) table and
 HP/MP/SP refill from the new maxima; ON_LEVEL_UP is emitted with the
-old/new levels.  The host ``add_exp`` API is not part of this package yet.
+old/new levels.  The host ``add_exp`` does the same for one entity at
+once, with the reference's loop (NFCLevelModule.cpp:38-69).
 """
 
 from __future__ import annotations
@@ -15,10 +16,12 @@ from typing import Optional
 
 import torch
 
+from ..core.datatypes import Guid
 from ..core.store import WorldState, set_column, with_class
 from ..kernel.module import Module
 from .defines import COMM_PROPERTY_RECORD, GameEvent, PropertyGroup, STAT_NAMES
 from .property_config import PropertyConfigModule
+from .stats import PropertyModule
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -29,10 +32,12 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class LevelModule(Module):
     name = "LevelModule"
 
-    def __init__(self, config: PropertyConfigModule, class_name: str = "Player",
-                 order: int = 50):
+    def __init__(self, config: PropertyConfigModule,
+                 properties: Optional[PropertyModule] = None,
+                 class_name: str = "Player", order: int = 50):
         super().__init__()
         self.config = config
+        self.properties = properties
         self.class_name = class_name
         # before the stat recompute (order 60) so a level-up's new JOBLEVEL
         # row lands in the same tick's final stats
@@ -106,3 +111,31 @@ class LevelModule(Module):
         ctx.emit(int(GameEvent.ON_LEVEL_UP), cname, leveled & cs.alive,
                  old_level=old_level, new_level=new_level)
         return with_class(state, cname, cs)
+
+    # -- host API (reference NFILevelModule) ---------------------------------
+
+    def add_exp(self, guid: Guid, exp: int) -> int:
+        """Immediate AddExp with full level-up semantics; returns the
+        level.  The device phase does the same batch-wise at the next
+        tick."""
+        k = self.kernel
+        job = int(k.get_property(guid, "Job"))
+        level = int(k.get_property(guid, "Level"))
+        cur = int(k.get_property(guid, "EXP")) + int(exp)
+        max_exp = self.config.calculate_base_value(job, level, "MAXEXP")
+        leveled = False
+        while max_exp > 0 and cur >= max_exp and level < self.config.max_level:
+            cur -= max_exp
+            level += 1
+            leveled = True
+            max_exp = self.config.calculate_base_value(job, level, "MAXEXP")
+        k.set_property(guid, "EXP", cur)
+        if leveled:
+            k.set_property(guid, "Level", level)
+            k.set_property(guid, "MAXEXP", max_exp)
+            if self.properties is not None:
+                self.properties.refresh_base_property(guid, self.config)
+                self.properties.recompute_now(guid)
+                self.properties.full_hp_mp(guid)
+                self.properties.full_sp(guid)
+        return level

@@ -39,6 +39,10 @@ class RegenModule(Module):
         k.state = k.schedule.set_timer_rows(
             k.state, class_name, rows, REGEN_TIMER, self.period_s)
 
+    def arm(self, guid) -> None:
+        k = self.kernel
+        k.state = k.schedule.set_timer(k.state, k.store, guid, REGEN_TIMER, self.period_s)
+
     def _regen_phase(self, state: WorldState, ctx) -> WorldState:
         for cname in self.classes:
             if cname not in ctx.store.class_index:

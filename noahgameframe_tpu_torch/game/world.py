@@ -1,11 +1,11 @@
-"""GameWorld: one-call assembly of the game stack the benchmark world runs.
+"""GameWorld: one-call assembly of the standard game stack.
 
 Counterpart of ``noahgameframe_tpu/game/world.py`` with
-``middleware=False``: kernel, scene, property config, stat recompute,
-level, movement, combat, regen and telemetry.  There is no plugin
-manager here: :meth:`GameWorld.start` drives the module lifecycle
-itself, in the order the JAX package's plugin manager does (which fixes
-the timer slots), and :meth:`GameWorld.run` is its frame loop.
+``middleware=False``: kernel, scene, scene process, components, property
+config, stats, level, skills, movement, combat, regen and telemetry, in
+three plugins of one :class:`PluginManager` (``GameWorld.pm``), in the
+JAX package's order (which fixes the timer slots).  :meth:`GameWorld.start`
+is ``pm.start()`` and :meth:`GameWorld.run` its frame loop.
 :meth:`GameWorld.save` and :meth:`GameWorld.load` checkpoint the world in
 the JAX package's format (persist/checkpoint.py).
 
@@ -22,17 +22,20 @@ import numpy as np
 
 from ..core.schema import ClassRegistry
 from ..core.store import StoreConfig
-from ..kernel.kernel import Kernel
-from ..kernel.module import LIFECYCLE, Module
+from ..kernel.component import ComponentModule
+from ..kernel.kernel import Kernel, TickOutputs
+from ..kernel.module import Module
+from ..kernel.plugin import Plugin, PluginManager
 from ..kernel.scene import SceneModule
 from ..persist.checkpoint import load_world, save_world
 from ..telemetry.module import TelemetryModule
-from .combat import CombatModule
+from .combat import CombatModule, SkillModule
 from .defines import COMM_PROPERTY_RECORD, PropertyGroup
 from .level import LevelModule
 from .movement import MovementModule
 from .property_config import PropertyConfigModule
 from .regen import RegenModule
+from .scene_process import SceneProcessModule
 from .schema import standard_registry
 from .stats import PropertyModule
 
@@ -60,7 +63,8 @@ class WorldConfig:
 
 
 class GameWorld:
-    """The assembled stack on one device (``None`` = ``"cuda"``)."""
+    """The assembled stack on one device (``None`` = ``"cuda"``); ``.pm`` is
+    its plugin manager."""
 
     def __init__(self, config: Optional[WorldConfig] = None,
                  registry: Optional[ClassRegistry] = None, device=None):
@@ -84,9 +88,12 @@ class GameWorld:
         )
         self.device = self.kernel.device
         self.scene = SceneModule()
+        self.scene_process = SceneProcessModule(self.scene)
+        self.components = ComponentModule()
         self.property_config = PropertyConfigModule()
         self.properties = PropertyModule()
-        self.level = LevelModule(self.property_config)
+        self.level = LevelModule(self.property_config, self.properties)
+        self.skills = SkillModule()
         self.movement = MovementModule(extent=cfg.extent) if cfg.movement else None
         self.combat = None
         if cfg.combat:
@@ -102,39 +109,29 @@ class GameWorld:
         # registry, tracer, census and the kernel's cost book; attached to
         # the kernel in after_init
         self.telemetry = TelemetryModule()
-        # the JAX package's plugin-manager order (kernel, config plugin,
-        # then the game-server plugin's modules)
-        self.modules: List[Module] = [
-            m for m in (self.kernel, self.property_config, self.scene,
-                        self.properties, self.level, self.movement,
-                        self.combat, self.regen, self.telemetry)
-            if m is not None
-        ]
-        for m in self.modules:
-            m.kernel = self.kernel
+        server = [m for m in (self.scene, self.scene_process, self.components,
+                              self.properties, self.level, self.skills, self.movement,
+                              self.combat, self.regen, self.telemetry)
+                  if m is not None]
         self._rng = np.random.default_rng(cfg.seed)
-        self._started = False
+        self.pm = PluginManager(app_name="game")
+        self.pm.register_plugin(Plugin("KernelPlugin", [self.kernel]))
+        self.pm.register_plugin(Plugin("ConfigPlugin", [self.property_config]))
+        self.pm.register_plugin(Plugin("GameServerPlugin", server))
 
     def start(self) -> "GameWorld":
-        """awake -> init -> (kernel.build) -> after_init -> check_config ->
-        ready_execute: modules declare timers in init, and the world is
-        built before after_init."""
-        if self._started:
-            return self
-        for phase in LIFECYCLE:
-            if phase == "after_init":
-                self.kernel.build(self.modules)
-            for m in self.modules:
-                getattr(m, phase)()
-        self._started = True
+        """``pm.start()``: awake -> init -> (kernel.build) -> after_init ->
+        check_config -> ready_execute; modules declare timers in init, and
+        the world is built before after_init."""
+        self.pm.start()
         return self
 
     @property
     def all_modules(self) -> List[Module]:
-        """Every module of the world: the ``modules`` argument of
+        """Every registered module: the ``modules`` argument of
         persist.checkpoint's save_world/load_world, so module host state
         survives a resume."""
-        return list(self.modules)
+        return list(self.pm.modules.values())
 
     def save(self, path) -> dict:
         """Checkpoint the world into the directory ``path`` (see
@@ -186,18 +183,14 @@ class GameWorld:
         if self.regen is not None:
             self.regen.arm_all("NPC")
 
-    def tick(self):
-        """One frame: host execute() on every module, then the device tick."""
-        for m in self.modules:
-            if m is not self.kernel:
-                m.execute()
-        self.kernel.execute()
-        return self.kernel.tick()
+    def tick(self) -> TickOutputs:
+        """One frame (``pm.run_once``): host execute() on every module,
+        then the observed device tick, whose outputs it returns."""
+        return self.pm.run_once()
 
     def run(self, frames: int) -> None:
         """``frames`` observed frames, each one :meth:`tick`."""
-        for _ in range(int(frames)):
-            self.tick()
+        self.pm.run(int(frames))
 
 
 def build_benchmark_world(n_npcs: int, extent: Optional[float] = None,

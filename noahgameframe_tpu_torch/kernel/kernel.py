@@ -36,9 +36,13 @@ DESTROY (or defers to the end of the frame, flushed by :meth:`execute`),
 and ``set_property`` fires host property subscribers synchronously.
 Deaths found on the device free their rows on the host and fire
 ``ObjectEvent.DESTROY``; property subscribers also hear the tick's
-changes through its diff masks.  Not ported here: the plugin manager
-(``GameWorld.start`` drives the module lifecycle), journaling, forced
-diff columns and record-diff subscribers.
+changes through its diff masks, which cover the ``diff_flags`` columns
+plus any column opted in by :meth:`force_diff_property`.  A record with a
+:meth:`register_record_diff` subscriber gets an int8 ``[C, R]`` code
+lane per tick (``REC_ADDED``/``REMOVED``/``UPDATED``), fetched only when
+the summary counts a change.  Both change what the step computes, so
+they invalidate it and are part of every capture's key.  Not ported
+here: journaling.
 """
 
 from __future__ import annotations
@@ -82,42 +86,44 @@ class ObjectEvent(enum.IntEnum):
 
 ClassEventFn = Callable[[Guid, str, "ObjectEvent"], None]
 PropertyEventFn = Callable[[str, str, np.ndarray], None]  # (class, prop, changed_rows)
+# (class, record, codes[C, R] int8) — 0 none, 1 added, 2 removed, 3 updated
+RecordDiffFn = Callable[[str, str, np.ndarray], None]
+
+REC_NONE, REC_ADDED, REC_REMOVED, REC_UPDATED = 0, 1, 2, 3
 
 # Every per-tick output lane of Kernel._step that host code consumes must
-# match one of these patterns: a K-tick train stacks exactly these lanes
-# into [K, ...] buffers, and a lane missing from the stack would lose its
-# per-tick history inside a train.  _assert_train_lanes enforces it.
+# match one of these patterns (or appear in TRAIN_EXCLUDED): a K-tick
+# train stacks exactly these lanes into [K, ...] buffers, and a lane
+# missing from the stack would lose its per-tick history inside a train.
+# _assert_train_lanes enforces it.
 TRAIN_LANE_SPEC = (
     "fired",
     "diff",
     "diff_count",
+    "rec_diff",
+    "rec_diff_count",
     "died",
     "died_count",
     "events",
     "summary",
 )
 
-# Lanes of the JAX package's tick that the port's step does not produce,
-# each with its reason.  Should the step ever produce one, the lane check
-# fails until the lane moves to TRAIN_LANE_SPEC.
-TRAIN_EXCLUDED = {
-    "rec_diff": "record-diff subscribers are not ported: the step computes no record diffs",
-    "rec_diff_count": "record-diff subscribers are not ported: no per-class record-diff counts",
-}
+# Out lanes waived from train stacking (none: every per-tick output is
+# host-consumed), as in the JAX package.
+TRAIN_EXCLUDED: Tuple[str, ...] = ()
 
 
 def _assert_train_lanes(out: Dict[str, object]) -> None:
     """Coverage check of the train's stacked lane set, both directions: a
-    lane no pattern names (a new per-tick output without a train fate), a
-    pattern no lane matches (stale), or an excluded lane that is produced."""
-    unlisted = [k for k in out if not any(fnmatch(k, p) for p in TRAIN_LANE_SPEC)]
-    stale = [p for p in TRAIN_LANE_SPEC if not any(fnmatch(k, p) for k in out)]
-    produced = [p for p in TRAIN_EXCLUDED if any(fnmatch(k, p) for k in out)]
-    if unlisted or stale or produced:
+    lane no pattern names (a new per-tick output without a train fate), or
+    a pattern no lane matches (stale)."""
+    spec = TRAIN_LANE_SPEC + TRAIN_EXCLUDED
+    unlisted = [k for k in out if not any(fnmatch(k, p) for p in spec)]
+    stale = [p for p in spec if not any(fnmatch(k, p) for k in out)]
+    if unlisted or stale:
         raise AssertionError(
             "TRAIN_LANE_SPEC drift: "
-            f"unlisted out lanes {unlisted}, stale patterns {stale}, "
-            f"excluded lanes produced {produced}"
+            f"unlisted out lanes {unlisted}, stale patterns {stale}"
         )
 
 
@@ -232,17 +238,21 @@ class TickCtx:
 
 class TickOutputs:
     """What one observed tick returns: fired masks, flag-masked diff masks,
-    death masks, the emitted events and the decoded counter bank.  A
-    train's frames are views of that dispatch's own ``[K, ...]`` lanes."""
+    death masks, the emitted events, the record-diff codes of subscribed
+    records (class -> record -> ``[C, R]`` int8) with their per-class
+    counts, and the decoded counter bank.  A train's frames are views of
+    that dispatch's own ``[K, ...]`` lanes."""
 
     def __init__(self, fired, diff, diff_count, died, died_count, events,
-                 counters=None):
+                 rec_diff=None, rec_diff_count=None, counters=None):
         self.fired: Dict[str, torch.Tensor] = fired
         self.diff: Dict[str, Dict[str, torch.Tensor]] = diff
         self.diff_count: Dict[str, torch.Tensor] = diff_count
         self.died: Dict[str, torch.Tensor] = died
         self.died_count: Dict[str, torch.Tensor] = died_count
         self.events: List[DeviceEvent] = events
+        self.rec_diff: Dict[str, Dict[str, torch.Tensor]] = rec_diff or {}
+        self.rec_diff_count: Dict[str, torch.Tensor] = rec_diff_count or {}
         self.counters: Dict[str, int] = counters or {}
 
 
@@ -257,6 +267,7 @@ class Kernel(Module):
         store_config: Optional[StoreConfig] = None,
         dt: float = 1.0 / 30.0,
         seed: int = 0,
+        class_names: Optional[Sequence[str]] = None,
         diff_flags: Tuple[str, ...] = ("public", "upload"),
         device=None,
     ):
@@ -268,6 +279,7 @@ class Kernel(Module):
         self.events = EventModule()
         self.elements = ElementStore(registry)
         self._seed = seed
+        self._class_names = class_names
         self._diff_flags = diff_flags
         self.store: Optional[EntityStore] = None
         self.state: Optional[WorldState] = None
@@ -277,6 +289,9 @@ class Kernel(Module):
         self._class_event_subs: List[ClassEventFn] = []
         self._class_event_by_class: Dict[str, List[ClassEventFn]] = {}
         self._prop_event_subs: Dict[Tuple[str, str], List[PropertyEventFn]] = {}
+        # class -> properties opted into diff extraction beyond diff_flags
+        self._forced_diff: Dict[str, set] = {}
+        self._rec_event_subs: Dict[Tuple[str, str], List[RecordDiffFn]] = {}
         self._pending_destroy: List[Guid] = []
         # the capture and launch ledger of every entry point (tick, run,
         # train); TelemetryModule.attach_kernel adopts it
@@ -317,25 +332,39 @@ class Kernel(Module):
         }
         self.store = EntityStore(
             self.registry, self.store_config, strings=self.elements.strings,
-            device=self.device,
+            class_names=self._class_names, device=self.device,
         )
         self.state = self.store.init_state(self._seed)
         self._modules = list(modules)
         self.set_phases([p for m in modules for p in m.phases])
-        # the columns each bank's diff extraction keeps (diff_flags union)
         for cname in self.store.class_order:
-            spec = self.store.spec(cname)
-            cols = {}
-            for bank in (Bank.I32, Bank.F32, Bank.VEC):
-                fm = np.zeros(spec.bank_size(bank), bool)
-                for fl in self._diff_flags:
-                    fm |= spec.mask(bank, fl)
-                if fm.any():
-                    cols[bank.value] = torch.from_numpy(fm).to(self.device)
-            self._diff_cols[cname] = cols
+            self._diff_cols[cname] = self._diff_columns(cname)
 
-    def set_phases(self, phases: Sequence[Phase]) -> None:
-        """Replace the composed phase chain (drops every captured graph)."""
+    def _diff_columns(self, cname: str) -> Dict[str, torch.Tensor]:
+        """The columns each bank's diff extraction keeps: the union of the
+        ``diff_flags`` masks and the forced properties; a bank with none
+        has no mask."""
+        spec = self.store.spec(cname)
+        cols = {}
+        for bank in (Bank.I32, Bank.F32, Bank.VEC):
+            fm = np.zeros(spec.bank_size(bank), bool)
+            for fl in self._diff_flags:
+                fm |= spec.mask(bank, fl)
+            for pname in self._forced_diff.get(cname, ()):
+                slot = spec.slot(pname)
+                if slot.bank == bank:
+                    fm[slot.col] = True
+            if fm.any():
+                cols[bank.value] = torch.from_numpy(fm).to(self.device)
+        return cols
+
+    def set_phases(self, phases: Sequence[Phase],
+                   modules: Optional[Sequence[Module]] = None) -> None:
+        """Replace the composed phase chain (drops every captured graph);
+        ``modules``, when given, replaces the modules whose capture keys
+        key the captures (a plugin reload)."""
+        if modules is not None:
+            self._modules = list(modules)
         self._composed = sorted(phases, key=lambda p: p.order)
         self._step_fn = self._run_fn = self._train_fn = None
         self._trace_gen += 1
@@ -345,7 +374,12 @@ class Kernel(Module):
 
     def _statics(self) -> Dict[str, Any]:
         """The host values the step closes over: the capture key."""
-        key: Dict[str, Any] = {"digest": self.digest_enabled}
+        key: Dict[str, Any] = {
+            "digest": self.digest_enabled,
+            "forced_diff": tuple(sorted((c, tuple(sorted(ps)))
+                                        for c, ps in self._forced_diff.items())),
+            "rec_diff": tuple(sorted(self._rec_event_subs)),
+        }
         for m in self._modules:
             key.update(m.capture_key())
         return key
@@ -433,6 +467,8 @@ class Kernel(Module):
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         diff: Dict[str, Dict[str, torch.Tensor]] = {}
         diff_count: Dict[str, torch.Tensor] = {}
+        rec_diff: Dict[str, Dict[str, torch.Tensor]] = {}
+        rec_diff_count: Dict[str, torch.Tensor] = {}
         died: Dict[str, torch.Tensor] = {}
         died_count: Dict[str, torch.Tensor] = {}
         with _annotate("nf.diff"):
@@ -451,6 +487,11 @@ class Kernel(Module):
                 if masks:
                     diff[cname] = masks
                     diff_count[cname] = total
+                codes = self._record_codes(cname, oc, nc)
+                if codes:
+                    rec_diff[cname] = codes
+                    rec_diff_count[cname] = sum(
+                        (torch.sum(c != 0, dtype=torch.int32) for c in codes.values()), zero)
                 d = oc.alive & ~nc.alive
                 died[cname] = d
                 died_count[cname] = torch.sum(d, dtype=torch.int32)
@@ -460,7 +501,7 @@ class Kernel(Module):
         counters = dict(ctx._counters)
         counters["deaths"] = sum(died_count.values(), zero)
         counters["diff_cells"] = sum(diff_count.values(), zero)
-        counters["rec_diff_cells"] = zero  # no record-diff subscribers
+        counters["rec_diff_cells"] = sum(rec_diff_count.values(), zero)
         counters["events_fired"] = sum(ev_counts, zero)
         counters["tick"] = state.tick
         if self.digest_enabled:
@@ -468,13 +509,15 @@ class Kernel(Module):
                 state_digest(state, self.store.class_order)
             ) if digest_in_step else zero
         self._counter_names = tuple(sorted(counters))
-        self._summary_len = (len(self.store.class_order) + len(diff_count) + len(ev_counts)
-                             + len(self._counter_names))
+        self._summary_len = (len(self.store.class_order) + len(diff_count)
+                             + len(rec_diff_count) + len(ev_counts) + len(self._counter_names))
         # ONE packed int32 vector per tick: deaths per class, diff cells per
-        # class (sorted), event counts, then the counter bank in name order
+        # class (sorted), record-diff cells per class (sorted), event
+        # counts, then the counter bank in name order
         summary = torch.stack(
             [died_count[c] for c in self.store.class_order]
             + [diff_count[c] for c in sorted(diff_count)]
+            + [rec_diff_count[c] for c in sorted(rec_diff_count)]
             + ev_counts
             + [counters[k].to(torch.int32) for k in self._counter_names]
         )
@@ -482,12 +525,41 @@ class Kernel(Module):
             "fired": fired,
             "diff": diff,
             "diff_count": diff_count,
+            "rec_diff": rec_diff,
+            "rec_diff_count": rec_diff_count,
             "died": died,
             "died_count": died_count,
             "events": [(e.mask, e.params) for e in ctx.emitted],
             "summary": summary,
         }
         return state, raw
+
+    def _record_codes(self, cname: str, oc, nc) -> Dict[str, torch.Tensor]:
+        """The ``[C, R]`` int8 row-change codes of each subscribed record of
+        a class between two states: ADDED where a row became used, REMOVED
+        where it stopped being used, UPDATED where a used row's cells
+        changed, 0 elsewhere and on dead entities."""
+        spec = self.store.spec(cname)
+        codes = {}
+        for rname in spec.record_order:
+            if (cname, rname) not in self._rec_event_subs:
+                continue
+            rs = spec.records[rname]
+            orec, nrec = oc.records[rname], nc.records[rname]
+            changed = torch.zeros_like(nrec.used)
+            if rs.n_i32:
+                changed = changed | (orec.i32 != nrec.i32).any(dim=-1)
+            if rs.n_f32:
+                changed = changed | (orec.f32 != nrec.f32).any(dim=-1)
+            if rs.n_vec:
+                changed = changed | (orec.vec != nrec.vec).flatten(-2).any(dim=-1)
+            code = torch.where(
+                ~orec.used & nrec.used, REC_ADDED,
+                torch.where(orec.used & ~nrec.used, REC_REMOVED,
+                            torch.where(nrec.used & changed, REC_UPDATED, REC_NONE)),
+            ).to(torch.int8)
+            codes[rname] = code * nc.alive[:, None].to(torch.int8)
+        return codes
 
     def tick(self) -> TickOutputs:
         """Advance the world one frame, fetch the summary, and fan out
@@ -508,7 +580,8 @@ class Kernel(Module):
         events = [DeviceEvent(eid, cname, mask, dict(params))
                   for (eid, cname, _names), (mask, params) in zip(self._event_meta, lane["events"])]
         return TickOutputs(lane["fired"], lane["diff"], lane["diff_count"], lane["died"],
-                           lane["died_count"], events)
+                           lane["died_count"], events, lane["rec_diff"],
+                           lane["rec_diff_count"])
 
     def _observe_counters(self, out: TickOutputs, summary: np.ndarray) -> None:
         out.counters = {k: int(v) for k, v in self.decode_counters(summary).items()}
@@ -667,7 +740,10 @@ class Kernel(Module):
                    exact_deaths: bool = False) -> None:
         n_cls = len(self.store.class_order)
         off = n_cls + len(out.diff_count)
-        event_counts = summary[off:off + len(out.events)]
+        rec_counts = dict(zip(sorted(out.rec_diff_count),
+                              summary[off:off + len(out.rec_diff_count)]))
+        off2 = off + len(out.rec_diff_count)
+        event_counts = summary[off2:off2 + len(out.events)]
         # device-emitted events first, so entities that died this tick
         # still deliver theirs (the reference fires events before destroy)
         live = [
@@ -705,6 +781,18 @@ class Kernel(Module):
             if rows.size:
                 for fn in fns:
                     fn(cname, pname, rows)
+        # record-diff subscribers: the codes are fetched only when the
+        # summary counts a change in their class
+        for (cname, rname), fns in self._rec_event_subs.items():
+            if not int(rec_counts.get(cname, 0)):
+                continue
+            codes_dev = out.rec_diff.get(cname, {}).get(rname)
+            if codes_dev is None:
+                continue
+            codes = codes_dev.cpu().numpy()
+            if codes.any():
+                for fn in fns:
+                    fn(cname, rname, codes)
 
     # -- object lifecycle (host control plane) ------------------------------
 
@@ -803,6 +891,37 @@ class Kernel(Module):
         after each tick (diff-flagged columns) and on each host write."""
         self.store.spec(class_name).slot(prop_name)  # validate
         self._prop_event_subs.setdefault((class_name, prop_name), []).append(fn)
+
+    def force_diff_property(self, class_name: str, prop_name: str) -> None:
+        """Opt a property outside ``diff_flags`` into the device diff
+        extraction, so its tick-path changes reach property subscribers.
+        A new column invalidates the captured tick."""
+        self.store.spec(class_name).slot(prop_name)  # validate
+        s = self._forced_diff.setdefault(class_name, set())
+        if prop_name not in s:
+            s.add(prop_name)
+            self._diff_cols[class_name] = self._diff_columns(class_name)
+            self.invalidate()
+
+    def register_record_diff(self, class_name: str, record_name: str,
+                             fn: RecordDiffFn) -> None:
+        """Subscribe to a record's device-path changes: called after each
+        tick with its int8 ``[C, R]`` codes (REC_ADDED/REMOVED/UPDATED).
+        The codes are computed only for subscribed records, so the first
+        subscriber of a record invalidates the captured tick."""
+        spec = self.store.spec(class_name)
+        if record_name not in spec.records:
+            raise KeyError(f"{class_name!r} has no record {record_name!r}")
+        key = (class_name, record_name)
+        first = key not in self._rec_event_subs
+        self._rec_event_subs.setdefault(key, []).append(fn)
+        if first:
+            self.invalidate()
+
+    def subscribe_record_host(self, fn) -> None:
+        """Host-path per-op record hook (store mutators; reference
+        NFIRecord::AddRecordHook): see EntityStore.subscribe_records."""
+        self.store.subscribe_records(fn)
 
     def _fire_class_event(self, guid: Guid, class_name: str, ev: ObjectEvent) -> None:
         for fn in self._class_event_by_class.get(class_name, ()):

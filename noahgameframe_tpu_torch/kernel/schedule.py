@@ -12,11 +12,12 @@ Handlers are device phases that read ``ctx.fired(class_name, timer_name)``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core.datatypes import Guid
 from ..core.store import ClassState, TimerState, WorldState, with_class
 from .module import Module
 
@@ -51,10 +52,23 @@ class ScheduleModule(Module):
     def slot(self, class_name: str, timer_name: str) -> int:
         return self._slots[class_name][timer_name]
 
+    def timer_names(self, class_name: str) -> List[str]:
+        return list(self._slots.get(class_name, ()))
+
     def ticks_of(self, seconds: float) -> int:
         return max(1, int(round(float(seconds) / self.dt)))
 
-    # -- per-entity timer control (host) --------------------------------------
+    # -- per-entity timer control (host, functional) ---------------------------
+
+    def set_timer(self, state: WorldState, store, guid: Guid, timer_name: str,
+                  interval_s: float, count: int = -1,
+                  start_delay_s: Optional[float] = None) -> WorldState:
+        """Arm a timer on one entity: fire every ``interval_s``, ``count``
+        times (-1 = forever), first firing after ``start_delay_s``
+        (default one interval): AddHeartBeat semantics."""
+        class_name, row = store.row_of(guid)
+        return self.set_timer_rows(state, class_name, np.asarray([row]), timer_name,
+                                   interval_s, count, start_delay_s)
 
     def set_timer_rows(
         self,
@@ -64,11 +78,13 @@ class ScheduleModule(Module):
         timer_name: str,
         interval_s: float,
         count: int = -1,
+        start_delay_s: Optional[float] = None,
         start_delay_ticks: Optional[np.ndarray] = None,
     ) -> WorldState:
         """Batch-arm one timer slot: fire every ``interval_s``, ``count``
         times (-1 = forever).  ``start_delay_ticks`` (per row) staggers the
-        first firings; by default the first firing is one interval out."""
+        first firings, ``start_delay_s`` delays them all; by default the
+        first firing is one interval out."""
         slot = self.slot(class_name, timer_name)
         interval = self.ticks_of(interval_s)
         cs = state.classes[class_name]
@@ -78,6 +94,8 @@ class ScheduleModule(Module):
             delay = torch.from_numpy(
                 np.maximum(np.asarray(start_delay_ticks, np.int32), 1)
             ).to(dev)
+        elif start_delay_s is not None:
+            delay = self.ticks_of(start_delay_s)
         else:
             delay = interval
         t = cs.timers
@@ -94,6 +112,16 @@ class ScheduleModule(Module):
             active=put(t.active, True),
         )
         return with_class(state, class_name, cs.replace(timers=t))
+
+    def cancel_timer(self, state: WorldState, store, guid: Guid,
+                     timer_name: str) -> WorldState:
+        class_name, row = store.row_of(guid)
+        slot = self.slot(class_name, timer_name)
+        cs = state.classes[class_name]
+        active = cs.timers.active.clone()
+        active[row, slot] = False
+        return with_class(state, class_name,
+                          cs.replace(timers=cs.timers.replace(active=active)))
 
     # -- device step (run by the kernel before the phases) -------------------
 

@@ -20,8 +20,8 @@ their tables are bit-identical, overflow drops included.  Then:
    ``dropped``.  ``build_cell_slots_pair`` returns the same slot
    assignments without the payloads (the fused engine's input).
 2. ``stencil_fold`` walks the 3x3 neighborhood as nine shifted views of
-   the padded ``[H, W, K, F]`` grid; ``pull_slots`` maps per-slot results
-   back to rows.
+   the padded ``[H, W, K, F]`` grid; ``pull_slots`` (``pull`` through a
+   table) maps per-slot results back to rows.
 
 Placement is bit-identical to the JAX package's: the rank fixes which
 entities overflow, and the dump slot is re-pinned to zero after the
@@ -313,3 +313,8 @@ def pull_slots(slot_of: torch.Tensor, values: torch.Tensor, fill=0) -> torch.Ten
     flat = torch.cat([values.reshape(-1, nv), fill_row[None, :]])
     out = flat[slot_of.long()]
     return out[..., 0] if squeeze else out
+
+
+def pull(table: CellTable, values: torch.Tensor, fill=0) -> torch.Tensor:
+    """:func:`pull_slots` through a CellTable's slot assignment."""
+    return pull_slots(table.slot_of, values, fill)

@@ -428,3 +428,27 @@ def test_checkpoint_saved_on_cuda_resumes_on_cpu(cuda, tmp_path):
     b = _settled(4096, "cpu", ticks=10)
     b.load(tmp_path / "ck")
     assert _stream(a, 20) == _stream(b, 20)
+
+
+def test_host_layer_script_graph_matches_eager(cuda):
+    """chip_smoke.py's (h) script of host operations (scenes and groups,
+    players, skills, timers, add_exp, the stat API, releases, a forced
+    diff column, record-diff subscribers, arm_all) at 65,536 NPCs: one
+    graph train a batch against eager observed ticks give equal digest
+    streams, subscriber logs and scene answers, and the train graph is
+    captured once, then once per invalidating op."""
+    import chip_smoke as cs
+
+    a = cs.host_layer_world(65_536, "cuda")
+    b = cs.host_layer_world(65_536, "cuda")
+    assert cs.digest(a.kernel) == cs.digest(b.kernel)
+    a.kernel.configure_train(cs.H_TICKS)
+    sync = torch.cuda.synchronize
+    ra = cs.run_host_script(a, a.kernel.train, sync)
+    rb = cs.run_host_script(b, lambda n: [b.kernel.tick() for _ in range(n)], sync)
+    assert ra["stream"] == rb["stream"] and len(ra["stream"]) == cs.H_BATCHES * cs.H_TICKS
+    assert ra["log"] == rb["log"]
+    assert ra["answers"] == rb["answers"]
+    entry = a.kernel.costbook.entry("kernel.train")
+    assert entry.compiles == 5 and entry.last["graph"] is True
+    assert sorted(entry.causes) == ["static:att_bucket", "static:forced_diff", "static:rec_diff"]

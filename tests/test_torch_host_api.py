@@ -1,8 +1,10 @@
 """The port's host object API against the JAX package on the CPU: a seeded
 random sequence of create_object / set_property / record operations /
-destroy_object (now or deferred) / tick, applied to both packages' worlds,
-gives equal state trees, equal guids, equal property values and equal
-subscriber calls after every step.  Plus the store-level API (decode,
+destroy_object (now or deferred) / timers / skills / scene and group moves
+/ add_exp / stat operations / forced diff columns / tick, applied to both
+packages' worlds, gives equal state trees, equal guids, equal read-backs
+and equal subscriber calls (property, record, class and scene hooks)
+after every step.  Plus the store-level API (decode,
 identity lookups, the host mirrors, record queries, with_column) on a
 custom schema."""
 
@@ -17,28 +19,45 @@ from noahgameframe_tpu.core.schema import prop as jprop
 from noahgameframe_tpu.core.schema import record as jrecord
 from noahgameframe_tpu.core.store import EntityStore as JStore
 from noahgameframe_tpu.core.store import StoreConfig as JStoreConfig
+from noahgameframe_tpu.game.defines import PropertyGroup as JPropertyGroup
 from noahgameframe_tpu.game.world import GameWorld as JWorld
 from noahgameframe_tpu.game.world import WorldConfig as JConfig
+from noahgameframe_tpu.kernel.scene import SeedSpec as JSeedSpec
 from noahgameframe_tpu_torch.core.datatypes import Guid
 from noahgameframe_tpu_torch.core.schema import ClassDef, ClassRegistry, prop, record
 from noahgameframe_tpu_torch.core.store import EntityStore, RecordOp, StoreConfig, state_to_numpy
+from noahgameframe_tpu_torch.game.defines import PropertyGroup
 from noahgameframe_tpu_torch.game.world import GameWorld, WorldConfig
+from noahgameframe_tpu_torch.kernel.scene import SeedSpec
 from test_torch_parity import assert_tree_equal, jax_tree
 
 EXTENT = 48.0
 
 
 def _worlds(seed):
-    """The same small combat world in both packages, guids pinned."""
-    a = JWorld(JConfig(npc_capacity=64, player_capacity=16, extent=EXTENT, seed=seed,
+    """The same small combat world in both packages, guids pinned: scene 1
+    with the seeded NPCs, scene 2 with a grunt seed, clone scene 7, a
+    skill element and a linear (job 0) level table."""
+    a = JWorld(JConfig(npc_capacity=64, player_capacity=48, extent=EXTENT, seed=seed,
                        middleware=False)).start()
-    b = GameWorld(WorldConfig(npc_capacity=64, player_capacity=16, extent=EXTENT,
+    b = GameWorld(WorldConfig(npc_capacity=64, player_capacity=48, extent=EXTENT,
                               seed=seed), device="cpu").start()
     for w in (a, b):
-        w.kernel.store.guids.pin(7000)
+        k = w.kernel
+        k.store.guids.pin(7000)
+        k.elements.add_element("NPC", "grunt", {"HP": 33, "MAXHP": 40, "SeedID": "gr"})
+        k.elements.add_element("Skill", "fireball", {"DamageValue": 10})
+        k.elements.add_element("Scene", "7", {"SceneType": 1})
+        seed_cls = JSeedSpec if w is a else SeedSpec
         w.scene.create_scene(1, width=EXTENT)
+        w.scene.create_scene(2, seeds=[seed_cls("grunt", "NPC", (5.0, 6.0, 0.0))])
+        w.scene.create_scene(7, seeds=[seed_cls("grunt", "NPC", (9.0, 9.0, 0.0))])
+        w.property_config.fill_linear(0, {"MAXHP": 100, "MAXMP": 20, "MAXSP": 10, "ATK_VALUE": 5},
+                                      {"MAXHP": 10, "MAXMP": 2, "MAXSP": 1, "ATK_VALUE": 1},
+                                      max_exp_base=40, max_exp_per_level=15)
+        w.property_config.freeze()
         w.seed_npcs(24)
-        w.kernel.enable_digest()
+        k.enable_digest()
     return a, b
 
 
@@ -61,9 +80,15 @@ def _log_events(w, log):
     for cname, pname in (("Player", "Gold"), ("Player", "Position"), ("NPC", "HP")):
         k.register_property_event(
             cname, pname, lambda c, p, rows: log.append(("prop", c, p, [int(r) for r in rows])))
-    k.store.subscribe_records(
+    k.subscribe_record_host(
         lambda c, r, op, rows, rr, tags: log.append(
             ("rec", c, r, int(op), [int(x) for x in rows], rr, tags)))
+    sc = w.scene
+    for name in ("before_enter_scene", "after_enter_scene", "before_leave_scene",
+                 "after_leave_scene", "on_swap_group"):
+        getattr(sc, name).append(
+            lambda g, s, gr, name=name: log.append(("hook", name, str(g), s, gr)))
+    sc.on_group_created.append(lambda s, gr: log.append(("group", s, gr)))
 
 
 # property name -> value maker, per class (int, float, string, object, vec2, vec3)
@@ -99,11 +124,59 @@ def _live(store, cname=None):
     return sorted(out, key=lambda g: (g.head, g.data))
 
 
-def _plan(rng, store):
-    """One random host operation, as data both packages can apply."""
+KINDS = ("create", "set", "record", "destroy", "tick", "timer", "skill", "scene",
+         "exp", "stat", "force")
+STAT_OPS = ("add_hp", "consume_hp", "enough_hp", "add_mp", "consume_mp", "enough_mp",
+            "add_sp", "consume_sp", "enough_sp", "add_money", "consume_money",
+            "enough_money", "add_diamond", "consume_diamond", "enough_diamond",
+            "full_hp_mp", "full_sp", "add_group_value", "recompute_now")
+FORCED = (("NPC", "LastAttacker"), ("NPC", "DeadTick"))
+HOST_KINDS = ("timer", "skill", "scene", "exp", "stat", "force")
+HOST_WEIGHTS = (0.15, 0.175, 0.25, 0.125, 0.25, 0.05)
+# the window of _plan's draw r that each store operation takes; "create"
+# splits into Player, NPC and Guild creates
+WINDOWS = {"create": (0.0, 0.22), "create NPC": (0.12, 0.18), "create Guild": (0.18, 0.22),
+           "set": (0.22, 0.45), "record": (0.45, 0.72), "destroy": (0.72, 0.84),
+           "tick": (0.84, 1.0)}
+
+
+def _plan_host(rng, kind, players, live):
+    """One operation of the scene and host layer of ``kind``."""
+    if kind == "force":
+        return ("force", *FORCED[int(rng.integers(0, len(FORCED)))])
+    p = players[int(rng.integers(0, len(players)))]
+    if kind == "timer":
+        g = live[int(rng.integers(0, len(live)))]
+        return ("timer", g, int(rng.integers(0, 3)), float(rng.choice([0.1, 0.5, 1.0])),
+                int(rng.choice([-1, 1, 3])), float(rng.choice([0.1, 0.3])))
+    if kind == "skill":
+        return ("skill", p, "fireball" if rng.random() < 0.85 else "nope",
+                live[int(rng.integers(0, len(live)))])
+    if kind == "scene":
+        # sub: 0 enter, 1 request a group, 2 release one, 3 scene-process
+        # enter, 4 broadcast read; enters weigh most
+        return ("scene", p, int(rng.choice([0, 0, 0, 3, 3, 1, 2, 4])), int(rng.choice([1, 2, 7])),
+                int(rng.integers(0, 8)))
+    if kind == "exp":
+        return ("exp", p, int(rng.choice([5, 30, 70, 200])))
+    return ("stat", p, STAT_OPS[int(rng.integers(0, len(STAT_OPS)))],
+            int(rng.integers(-3, 60)))
+
+
+def _plan(rng, store, kind=None):
+    """One random host operation, as data both packages can apply.
+
+    Four draws in ten go to the scene and host layer's kinds; the rest
+    draw ``r`` for the store operations in their own windows (``WINDOWS``).
+    ``kind`` picks the kind, or for a store operation the window."""
     players = _live(store, "Player")
     live = _live(store)
-    r = rng.random()
+    if kind is None and players and rng.random() < 0.4:
+        kind = HOST_KINDS[int(rng.choice(len(HOST_KINDS), p=HOST_WEIGHTS))]
+    if kind == "force" or (kind in HOST_KINDS and players):
+        return _plan_host(rng, kind, players, live)
+    lo, hi = WINDOWS.get(kind, (0.0, 1.0))
+    r = lo + (hi - lo) * rng.random()
     if r < 0.12 or not players:
         n = int(rng.integers(0, 1000))
         return ("create", "Player", {
@@ -149,6 +222,8 @@ def _apply(w, op):
     if kind == "tick":
         w.tick()
         return w.kernel.last_counters
+    if kind in ("timer", "skill", "scene", "exp", "stat", "force"):
+        return _apply_host(w, op)
     _, p, sub, target, r1, r2, val = op
     used = st.record_used_rows(k.state, p, EQUIP)
     if sub == 0 or not used:
@@ -176,6 +251,82 @@ def _apply(w, op):
             st.record_find_rows(k.state, p, EQUIP, "ConfigID", f"eq{val}"))
 
 
+def _apply_host(w, op):
+    """Apply one operation of the scene and host layer; returns its
+    read-backs (guids as strings)."""
+    k, kind = w.kernel, op[0]
+    jax_side = isinstance(w, JWorld)
+    if kind == "timer":
+        _, g, sub, interval, count, delay = op
+        cname = k.store.row_of(g)[0]
+        names = k.schedule.timer_names(cname)
+        if not names:
+            return "no timers"
+        timer = names[sub % len(names)]
+        if sub == 0 and "Regen" in names:
+            w.regen.arm(g)
+        elif sub == 1:
+            k.state = k.schedule.set_timer(k.state, k.store, g, timer, interval, count, delay)
+        else:
+            k.state = k.schedule.cancel_timer(k.state, k.store, g, timer)
+        return names
+    if kind == "skill":
+        _, p, skill, target = op
+        ok = w.skills.use_skill(p, skill, target)
+        alive = target in k.store.guid_map
+        return (ok, alive and k.get_property(target, "HP"),
+                alive and k.store.spec(k.store.row_of(target)[0]).has_property("LastAttacker")
+                and str(k.get_property(target, "LastAttacker")))
+    if kind == "scene":
+        _, p, sub, scene_id, pick = op
+        sc = w.scene
+        if sub == 0:
+            groups = sorted(sc.scenes[scene_id].groups)
+            group = groups[pick % len(groups)]
+            sc.enter_scene(p, scene_id, group)
+        elif sub == 1:
+            group = sc.request_group(2)
+        elif sub == 2:
+            groups = sorted(g for g in sc.scenes[2].groups if g)
+            group = sc.release_group(2, groups[pick % len(groups)]) if groups else -1
+        elif sub == 3:
+            group = w.scene_process.enter(p, scene_id, pick % 3)
+        else:
+            group = sc.broadcast_targets(p, public=bool(pick % 2))
+        s, g = int(k.get_property(p, "SceneID")), int(k.get_property(p, "GroupID"))
+        return (str(group) if isinstance(group, list) else group, s, g,
+                [str(x) for x in sc.objects_in_group(s, g, "Player")],
+                [str(x) for x in sc.objects_in_scene(s, "NPC")],
+                [str(x) for x in sc.broadcast_targets(p, public=True)],
+                {sid: (sorted(info.groups), list(info.free_groups))
+                 for sid, info in sc.scenes.items()})
+    if kind == "exp":
+        _, p, amount = op
+        level = w.level.add_exp(p, amount)
+        return (level, *(k.get_property(p, n) for n in ("EXP", "MAXEXP", "HP", "MAXHP", "SP")))
+    if kind == "stat":
+        _, p, name, v = op
+        props = w.properties
+        if name in ("full_hp_mp", "full_sp", "recompute_now"):
+            out = getattr(props, name)(p)
+        elif name == "add_group_value":
+            group = (JPropertyGroup if jax_side else PropertyGroup).EFFECTVALUE
+            out = props.add_group_value(p, "MAXHP", group, v)
+            out = (out, props.get_group_value(p, "MAXHP", group))
+        else:
+            out = getattr(props, name)(p, v)
+        return (out, *(k.get_property(p, n) for n in ("HP", "MP", "SP", "Gold", "Money")))
+    _, cname, prop_name = op
+    first = prop_name not in k._forced_diff.get(cname, ())
+    gen = k.costbook.generation
+    k.force_diff_property(cname, prop_name)
+    if first:
+        log = w._walk_log
+        k.register_property_event(
+            cname, prop_name, lambda c, pn, rows: log.append(("forced", c, pn, rows.tolist())))
+    return k.costbook.generation - gen
+
+
 def _props_of(w, g):
     st = w.kernel.store
     cname, _ = st.row_of(g)
@@ -184,19 +335,28 @@ def _props_of(w, g):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_random_host_ops_match_jax(seed):
-    """60 random host operations (creates with the seven-event chain,
+    """80 random host operations (creates with the seven-event chain,
     typed writes of every value type, record add/set/remove/swap/restore,
-    immediate and deferred destroys, ticks with combat) give equal trees,
-    guids, read-backs, property values and subscriber calls."""
+    immediate and deferred destroys, timers armed and cancelled, skills,
+    scene enters, group requests and releases, clone-scene enters through
+    the scene process, add_exp across level-ups, the stat API, forced diff
+    columns, ticks with combat) give equal trees, guids, read-backs,
+    property values and subscriber calls."""
     a, b = _worlds(seed)
     la, lb = [], []
     _log_events(a, la)
     _log_events(b, lb)
+    a._walk_log, b._walk_log = la, lb
     rng = np.random.default_rng(100 + seed)
-    kinds = set()
-    for step in range(60):
-        op = _plan(rng, b.kernel.store)
+    # a player, every kind once in a seeded order, then kinds at random
+    first = ["create"] + [str(x) for x in rng.permutation(KINDS + ("create NPC",
+                                                                   "create Guild"))]
+    kinds, created = set(), set()
+    for step in range(80):
+        op = _plan(rng, b.kernel.store, first[step] if step < len(first) else None)
         kinds.add(op[0])
+        if op[0] == "create":
+            created.add(op[1])
         got_a, got_b = _conv(_apply(a, op), False), _apply(b, op)
         assert got_a == got_b, (step, op)
         assert la == lb, (step, op)
@@ -213,8 +373,10 @@ def test_random_host_ops_match_jax(seed):
         if players:
             g = players[step % len(players)]
             assert _conv(_props_of(a, JGuid(g.head, g.data)), False) == _props_of(b, g), step
-    assert kinds == {"create", "set", "record", "destroy", "tick"}
-    assert any(e[0] == "prop" for e in lb) and any(e[0] == "rec" for e in lb)
+    assert kinds == set(KINDS)
+    assert created == {"Player", "NPC", "Guild"}, created
+    seen = {e[0] for e in lb}
+    assert {"prop", "rec", "hook", "class"} <= seen, seen
 
 
 def _registry(cd, pr, rc):

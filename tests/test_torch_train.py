@@ -153,9 +153,12 @@ def test_assert_train_lanes_gates_both_directions():
     del short["died"]
     with pytest.raises(AssertionError, match="stale.*died"):
         _assert_train_lanes(short)
-    with pytest.raises(AssertionError, match="excluded lanes produced.*rec_diff"):
-        _assert_train_lanes({**ok, "rec_diff": None})
-    assert all(TRAIN_EXCLUDED.values())  # every exclusion states its reason
+    # the record-diff lanes are stacked like every other lane, as in JAX
+    no_rec = dict(ok)
+    del no_rec["rec_diff_count"]
+    with pytest.raises(AssertionError, match="stale.*rec_diff_count"):
+        _assert_train_lanes(no_rec)
+    assert TRAIN_EXCLUDED == ()
 
 
 def test_configure_train_rejects_zero():

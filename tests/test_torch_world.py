@@ -74,6 +74,34 @@ def test_run_device_end_digest():
     assert got["state_digest"] == a.kernel.last_counters["state_digest"]
 
 
+def test_arm_all_rearm_invalidates_like_jax(monkeypatch):
+    """A re-arm that changes the attack duty (``arm_all(stagger=False)``
+    after the staggered seeding) invalidates the kernel in both packages:
+    the Verlet aux is dropped and rebuilt, so the counter banks (the
+    grid rebuild/reuse counts and the cache age among them), the aux
+    entries and the digests stay equal on every tick.  Tolerance 0."""
+    monkeypatch.setenv("NF_VERLET_SKIN", "2.0")
+    monkeypatch.setenv("NF_PALLAS", "0")
+    a = jax_world(512, seed=4)
+    b = torch_world(512, seed=4, device="cpu")
+    for w in (a, b):
+        w.kernel.enable_digest()
+    _tick_both(a, b, 5)
+    assert set(b.kernel.state.aux) == set(a.kernel.state.aux) == {"verlet/NPC"}
+    gen = b.kernel.costbook.generation
+    for w in (a, b):
+        w.combat.arm_all(stagger=False)
+    assert set(b.kernel.state.aux) == set(a.kernel.state.aux) == set()
+    assert b.kernel.costbook.generation == gen + 1
+    for t in range(5):
+        a.tick()
+        got = b.tick().counters
+        assert got == a.kernel.last_counters, f"tick {t} after the re-arm"
+        assert set(b.kernel.state.aux) == set(a.kernel.state.aux), t
+    assert got["grid_cache_age"] == a.kernel.last_counters["grid_cache_age"]
+    assert_tree_equal(jax_tree(a.kernel.state), state_to_numpy(b.kernel.state))
+
+
 def _imports(path: pathlib.Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
