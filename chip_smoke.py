@@ -87,7 +87,25 @@ non-zero without printing a result:
    config 3 (``neighbor_counts`` over 500k NPCs) and the interest query
    of 4,096 observers over the 1M world (fresh and Verlet-cached), each
    equal to the CPU and timed.  The kernel table gains each kernel's
-   launches on this path (``host_layer_launches``).
+   launches on this path (``host_layer_launches``);
+(i) the served path (run last): the game role's frame
+   (``GameRole.execute``: the tick as a CUDA graph, the diff harvest, the
+   interest lanes, encode and send) at 100,000 NPCs and 500 sessions
+   (radius 8.0, combat on, engine 1, sort, sessions seated as bench.py
+   seats them) under the legacy, batched, overlap and ``NF_TICK_TRAIN=8``
+   engines, then the batched engine under engine 2 and at 1M NPCs: frame
+   p50/p95/p99, messages and bytes, the exclusive stage waterfall, host
+   syncs a frame (CUDA's sync debug mode), each fold's launches (once per
+   tick served, plus the eager warm-up runs of any re-capture in the
+   window) and the re-captures with their causes.  The legacy and batched
+   engines send byte-equal streams at 100k (sessions at seeded spots);
+   at 4,096 NPCs and 32 sessions the card and the CPU (batched, overlap
+   and train engines), and the graph and the eager tick, send equal
+   streams with equal digests; a journal of 60
+   frames recorded on the card replays digest-clean on the card and on
+   the CPU, and a perturbed replay is bisected to the injected tick; then
+   the bench's ``--served`` line at 100k and 500 sessions.  The kernel
+   table gains each kernel's launches on this path (``served_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1731,6 +1749,337 @@ def phase_aoi_interest(card: str):
     free()
 
 
+# -- (i) the served path -----------------------------------------------------------
+SERVED_N = 100_000
+SERVED_1M = N_MAIN
+SERVED_SESSIONS = 500
+SERVED_FRAMES = 30
+SERVED_WARMUP = 3
+SERVED_RADIUS = 8.0
+FRAME_LIMIT_MS = 1000.0 / 30.0
+PARITY_N, PARITY_SESSIONS, PARITY_FRAMES = 4096, 32, 30
+JOURNAL_FRAMES = 60
+ENGINES = {
+    "legacy": {"serve_batch": False},
+    "batch": {"serve_batch": True},
+    "overlap": {"serve_overlap": True},
+    "train8": {"serve_batch": True, "tick_train": 8},
+}
+
+
+def served_role(n: int, sessions: int, device: str, *, seat_rng=None, **kw):
+    """The bench's served role (``bench.build_served_role``: one live Player
+    avatar a session, seated as bench.py seats them, or at random spots
+    when ``seat_rng`` is given), its transport writes hashed and counted:
+    returns (role, sink) with ``sink`` = {"msgs", "bytes", "sha"}."""
+    import hashlib
+
+    from noahgameframe_tpu_torch import bench
+
+    role, _sent = bench.build_served_role(n, sessions, torch.device(device), seed=SEED,
+                                          interest_radius=SERVED_RADIUS,
+                                          world=pinned_world(n, sessions + 8, device), **kw)
+    if seat_rng is not None:
+        ext = role.game_world.config.extent
+        for sess in role.sessions.values():
+            x, y = seat_rng.uniform(1.0, ext - 1.0, 2)
+            role.kernel.set_property(sess.guid, "Position", (float(x), float(y), 0.0))
+    from noahgameframe_tpu_torch.net.defines import TRACE_MSG_IDS
+
+    sink = {"msgs": 0, "bytes": 0, "sha": hashlib.sha256()}
+
+    def send(conn_id: int, msg_id: int, body: bytes) -> bool:
+        sink["msgs"] += 1
+        sink["bytes"] += len(body)
+        # frame-trace sidecars carry wall-clock stamps (observability, not
+        # state; the journal leaves them out too)
+        if msg_id not in TRACE_MSG_IDS:
+            sink["sha"].update(b"%d %d %d|" % (conn_id, msg_id, len(body)))
+            sink["sha"].update(body)
+        return True
+
+    role.server.send_raw = send
+    return role, sink
+
+
+def count_syncs(fn) -> int:
+    """Run ``fn()`` with CUDA's sync debug mode on; the number of host
+    syncs it made (each implicit synchronization raises one warning)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for r in rec if "synchroniz" in str(r.message))
+
+
+def serve_run(role, frames: int, now: float, *, digests=None, stages=None):
+    """``frames`` frames of ``role.execute``, each ended by a device sync;
+    returns (per-frame ms, clock).  ``digests`` collects each frame's
+    ``state_digest``, ``stages`` each frame's exclusive stage times (the
+    StageClock waterfall, which sums to the frame's wall time)."""
+    from noahgameframe_tpu_torch import bench
+
+    def sync():
+        torch.cuda.synchronize() if DEV == "cuda" else None
+        if digests is not None:
+            digests.append(role.kernel.last_counters.get("state_digest", 0) & 0xFFFFFFFF)
+        if stages is not None:
+            stages.append(dict(role.stage_clock.last))
+
+    return bench.serve_frames(role, frames, now, sync)
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def settle(role, now: float = 1000.0) -> float:
+    """SERVED_WARMUP frames, then more until a frame re-captures nothing
+    (the combat tables' overflow auto-resize re-captures the tick a few
+    times in the first frames; a re-capture's eager warm-up runs launch
+    the fold kernels too)."""
+    book = role.kernel.costbook
+    _ms, now = serve_run(role, SERVED_WARMUP, now)
+    for _ in range(20):
+        c0 = book.total_compiles
+        _ms, now = serve_run(role, 1, now)
+        if book.total_compiles == c0:
+            return now
+    raise RuntimeError("check failed: the served role kept re-capturing after 23 frames")
+
+
+def served_engine(name: str, n: int, frames: int, fold: str = "combat_fold", **kw) -> dict:
+    """One engine at n NPCs and SERVED_SESSIONS sessions: warm-up, timed
+    frames, the waterfall, host syncs a frame, fold launches against ticks
+    served, re-captures and their causes, and the stream's hash."""
+    role, sink = served_role(n, SERVED_SESSIONS, DEV, **kw)
+    k = role.kernel
+    book = k.costbook
+    now = settle(role)
+    sink["msgs"] = sink["bytes"] = 0
+    recompiles0, seq0 = book.total_recompiles, book._seq
+    sck.reset_launch_counts()
+    t0_tick = k.tick_count
+    t0 = time.perf_counter()
+    stages = []
+    frame_ms, now = serve_run(role, frames, now, stages=stages)
+    elapsed = time.perf_counter() - t0
+    ticks = k.tick_count - t0_tick
+    launches = {nm: kk.launches for nm, kk in sck.KERNELS.items()}
+    msgs, nbytes = sink["msgs"], sink["bytes"]
+    # a re-capture in the window (the overflow auto-resize can grow a
+    # bucket at any frame) first runs the step WARMUP_RUNS times eagerly,
+    # which launches the fold too: those launches are counted apart
+    warm = WARMUP_RUNS * sum(
+        role.tick_train if r["entry"] == "kernel.train" else 1
+        for r in book.compile_log if r["seq"] >= seq0
+        and r["entry"] in ("kernel.step", "kernel.train"))
+    sync_frames = 3
+    syncs = count_syncs(lambda: serve_run(role, sync_frames, now)) if DEV == "cuda" else None
+    names = sorted({st for fr in stages for st in fr})
+    per_stage = {st: [fr.get(st, 0) / 1e6 for fr in stages] for st in names}
+    out = {
+        "engine": name, "entities": n, "sessions": SERVED_SESSIONS, "frames": frames,
+        "ticks": ticks, "tick_train": role.tick_train, "serve_batch": role.serve_batch,
+        "serve_overlap": role.serve_overlap, "graph_tick": k.graph_tick,
+        "frame_ms_p50": pct(frame_ms, 50), "frame_ms_p95": pct(frame_ms, 95),
+        "frame_ms_p99": pct(frame_ms, 99), "frame_ms_mean": statistics.fmean(frame_ms),
+        "served_entity_ticks_per_s": n * ticks / elapsed,
+        "sync_msgs": msgs, "sync_bytes": nbytes,
+        "waterfall_p50_ms": {st: pct(v, 50) for st, v in per_stage.items()},
+        "waterfall_mean_ms": {st: statistics.fmean(v) for st, v in per_stage.items()},
+        "host_syncs_per_frame": None if syncs is None else syncs / sync_frames,
+        "launches": launches, "warmup_launches": warm,
+        "recaptures": book.total_recompiles - recompiles0,
+        "recapture_causes": {nm: dict(e.causes) for nm, e in sorted(book.entries.items())
+                             if e.causes},
+        "serve_dispatches": role._serve_dispatches.value(),
+    }
+    check(launches[fold] == ticks + warm,
+          f"{name}: {fold} launched once per tick served ({launches} vs {ticks} + {warm})")
+    check(msgs > 0 and all(np.isfinite(frame_ms)), f"{name}: frames served")
+    role.shut()
+    del role
+    free()
+    return out
+
+
+def stream_run(n: int, sessions: int, device: str, frames: int, **kw):
+    """(sha256 of the send stream, digest stream) of ``frames`` frames on
+    ``device``, sessions seated at seeded random spots."""
+    role, sink = served_role(n, sessions, device, seat_rng=np.random.default_rng(5), **kw)
+    role.kernel.enable_digest()
+    digests = []
+    serve_run(role, frames, 1000.0, digests=digests)
+    out = (sink["sha"].hexdigest(), digests, sink["msgs"])
+    role.shut()
+    del role
+    return out
+
+
+def journal_run(root, device: str):
+    """60 frames of a journaled served role at PARITY_N (a checkpoint at its
+    start, client events through the dispatch table): (journal, checkpoint)."""
+    from noahgameframe_tpu_torch.net import transport as tr
+    from noahgameframe_tpu_torch.net import wire
+    from noahgameframe_tpu_torch.net.defines import MsgID
+    from noahgameframe_tpu_torch.net.roles.base import RoleConfig
+    from noahgameframe_tpu_torch.net.roles.game import GameRole
+
+    jdir, cdir = os.path.join(root, "journal"), os.path.join(root, "ckpt")
+    w = journal_world(device)
+    role = GameRole(RoleConfig(6, 0, "Rec", "127.0.0.1", 0), backend="py", world=w,
+                    cross_server_sync=False, interest_radius=SERVED_RADIUS,
+                    serve_batch=True, journal_dir=jdir, checkpoint_dir=cdir,
+                    checkpoint_seconds=1e9)
+    role.server.send_raw = lambda c, m, b: True
+    role.checkpoint_now()
+    now, dt = 1000.0, w.config.dt * 1.0001
+    for f in range(JOURNAL_FRAMES):
+        me = wire.Ident(svrid=99, index=1 + f % 4)
+        if f < 4:
+            msg = wire.ReqEnterGameServer(account=b"a%d" % f, name=b"P%d" % f)
+            mid = MsgID.REQ_ENTER_GAME
+        else:
+            msg = wire.ReqAckPlayerMove(target_pos=[wire.Position(
+                x=float(5 + f % 50), y=float(7 + (3 * f) % 50), z=0.0)])
+            mid = MsgID.REQ_MOVE
+        role.server.dispatch.feed([tr.NetEvent(tr.EV_MSG, 1001, int(mid),
+                                               wire.wrap(msg, player_id=me))])
+        now += dt
+        role.execute(now)
+    role.shut()
+    return jdir, cdir
+
+
+def pinned_world(n: int, players: int, device: str):
+    """``build_benchmark_world(n)``'s recipe with a Player bank for
+    ``players`` and the guid allocator pinned before the NPCs are seeded,
+    so two builds (two devices, two engines) mint the same guids and send
+    the same bytes."""
+    extent = max(64.0, float(np.sqrt(n / 0.4)))
+    w = gw.GameWorld(gw.WorldConfig(
+        npc_capacity=1 << int(np.ceil(np.log2(max(n, 64)))), extent=extent, seed=SEED,
+        player_capacity=1 << int(np.ceil(np.log2(max(players, 64))))), device=device)
+    w.start()
+    w.kernel.store.guids.pin(7_000_000)
+    w.scene.create_scene(1, width=extent)
+    w.seed_npcs(n)
+    return w
+
+
+def journal_world(device: str):
+    return pinned_world(PARITY_N, 64, device)
+
+
+def phase_served(card: str):
+    """(i): the game role's served frame at 100,000 NPCs and 500 sessions
+    (radius 8, combat on, engine 1, sort) under each serve engine, batch at
+    1M, cuda against cpu and graph against eager at 4,096 NPCs, a journal
+    replayed on both devices, and the bench's --served line."""
+    from noahgameframe_tpu_torch.replay.bisect import bisect_divergence
+    from noahgameframe_tpu_torch.replay.replayer import make_offline_role, replay_journal
+
+    t_phase = time.perf_counter()
+    engines = {}
+    for name, kw in ENGINES.items():
+        engines[name] = served_engine(name, SERVED_N, SERVED_FRAMES, **kw)
+    # the same world and frames under legacy and batch: equal wire streams
+    sha = {}
+    for name in ("legacy", "batch"):
+        sha[name] = stream_run(SERVED_N, SERVED_SESSIONS, DEV, 12, **ENGINES[name])
+    check(sha["legacy"][0] == sha["batch"][0] and sha["legacy"][1] == sha["batch"][1],
+          "legacy and batch send streams are byte-equal at 100k / 500 sessions")
+    # engine 2 (the fused kernel) serves too
+    os.environ["NF_PALLAS"] = "2"
+    try:
+        engine2 = served_engine("batch_engine2", SERVED_N, 10, fold="fused_neighborhood",
+                                **ENGINES["batch"])
+    finally:
+        os.environ.pop("NF_PALLAS")
+    big = served_engine("batch_1m", SERVED_1M, SERVED_FRAMES, **ENGINES["batch"])
+    # parity on the card: cuda against cpu, graph against eager
+    par_kw = dict(ENGINES["batch"])
+    cuda_run = stream_run(PARITY_N, PARITY_SESSIONS, DEV, PARITY_FRAMES, **par_kw)
+    cpu_run = stream_run(PARITY_N, PARITY_SESSIONS, "cpu", PARITY_FRAMES, **par_kw)
+    eager_run = stream_run(PARITY_N, PARITY_SESSIONS, DEV, PARITY_FRAMES, graph_tick=False,
+                           **par_kw)
+    check(cuda_run[0] == cpu_run[0] and cuda_run[1] == cpu_run[1],
+          "cuda and cpu send streams and digests equal at 4,096 / 32 sessions")
+    check(cuda_run[0] == eager_run[0] and cuda_run[1] == eager_run[1],
+          "graph and eager ticks give equal send streams and digests")
+    # the overlap engine serves the pre-tick snapshot around the graph
+    # tick's in-place replay; the train fans 8 stacked frames out
+    for name, frames in (("overlap", 6), ("train8", 2)):
+        on_card = stream_run(PARITY_N, PARITY_SESSIONS, DEV, frames, **ENGINES[name])
+        on_cpu = stream_run(PARITY_N, PARITY_SESSIONS, "cpu", frames, **ENGINES[name])
+        check(on_card[:2] == on_cpu[:2] and on_card[2] > 0,
+              f"{name}: cuda and cpu send streams and digests equal at 4,096")
+    # journal: record on the card, replay on the card and on the CPU
+    root = tempfile.mkdtemp(prefix="nf_served_")
+    try:
+        jdir, cdir = journal_run(root, DEV)
+        reps = {}
+        for dev in (DEV, "cpu"):
+            role = make_offline_role(journal_world(dev), backend="py")
+            rep = replay_journal(jdir, checkpoint=cdir, role=role)
+            role.shut()
+            check(rep.ok and rep.ticks_replayed == JOURNAL_FRAMES,
+                  f"journal replays digest-clean on {dev}: {rep.summary()}")
+            reps[dev] = rep
+        injected = 37
+
+        def perturb(role, tick):
+            if tick == injected:
+                g = role.kernel.store._hosts["NPC"].row_guid[11]
+                role.kernel.set_property(g, "HP", 3)
+
+        role = make_offline_role(journal_world(DEV), backend="py")
+        bad = replay_journal(jdir, checkpoint=cdir, role=role, perturb=perturb)
+        role.shut()
+        named = bisect_divergence(bad.expected, bad.digests)
+        check(named == injected and bad.first_divergence == injected,
+              f"bisect names the injected tick ({named} vs {injected})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    # the bench line, as a user runs it
+    cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--served", "--entities",
+           str(SERVED_N), "--sessions", str(SERVED_SESSIONS), "--interest-radius",
+           str(SERVED_RADIUS), "--serve-batch", "--device", DEV]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"the served bench exits 0 ({proc.stderr[-2000:]})")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = line["detail"]
+    for key in ("frame_ms_p50", "frame_ms_p95", "frame_ms_p99", "sync_msgs", "sync_bytes",
+                "serve_batch", "serve_overlap", "pipeline", "device_name", "power_limit_w"):
+        check(key in d, f"the served bench line has {key}")
+    check(line["metric"] == "served_entity_ticks_per_sec" and line["value"] > 0,
+          "the served bench measured its frames")
+    emit({"phase": "served", "card": card, "frame_limit_ms": FRAME_LIMIT_MS,
+          "engines": engines, "engine2": engine2, "batch_1m": big,
+          "batch_1m_within_limit": {"p50": big["frame_ms_p50"] <= FRAME_LIMIT_MS,
+                                    "p99": big["frame_ms_p99"] <= FRAME_LIMIT_MS},
+          "legacy_batch_equal": True, "stream_sha": sha["batch"][0],
+          "cuda_cpu_equal": ["batch", "overlap", "train8"], "graph_eager_equal": True,
+          "parity": {"entities": PARITY_N, "sessions": PARITY_SESSIONS,
+                     "frames": PARITY_FRAMES, "msgs": cuda_run[2],
+                     "last_digest": cuda_run[1][-1]},
+          "journal": {"frames": JOURNAL_FRAMES, "events": reps[DEV].events_fed,
+                      "clean_on": sorted(reps), "bisect_tick": injected},
+          "seconds": time.perf_counter() - t_phase})
+    emit({"phase": "bench_served", "line": line})
+    served_launches = {nm: sum(e["launches"][nm] for e in (*engines.values(), engine2, big))
+                       for nm in sck.KERNELS}
+    return served_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1765,6 +2114,8 @@ def main() -> int:
     phase_bench_rooms()
     host_launches = phase_host_layer(card)
     phase_aoi_interest(card)
+    free()
+    served_launches = phase_served(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
@@ -1782,6 +2133,7 @@ def main() -> int:
          "library_ms": None,
          "resumed_launches": persist_launches[name],
          "host_layer_launches": host_launches[name],
+         "served_launches": served_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

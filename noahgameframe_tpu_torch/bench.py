@@ -6,6 +6,9 @@ or the many-worlds rooms ladder.
         [--device cuda]
     python -m noahgameframe_tpu_torch.bench --rooms [--rooms-count 256,4096,16384]
         [--rooms-entities 64] [--rooms-ticks 30] [--rooms-churn 8] [--train K]
+    python -m noahgameframe_tpu_torch.bench --served [--entities 100000]
+        [--sessions 50] [--interest-radius R] [--serve-batch] [--serve-overlap]
+        [--train K] [--no-combat] [--ticks 90]
 
 Counterpart of ``run_bench`` in the repository's ``bench.py``: builds the
 world, times a ``run_device`` window, takes single-step latency samples
@@ -32,6 +35,17 @@ unexplained re-captures, and under ``--train K`` the train arm and a
 120-tick digest parity of trains against ticks.  Its line's metric is
 ``rooms_room_ticks_per_sec`` (``rooms_train_room_ticks_per_sec`` under
 ``--train``) at the last rung.
+
+``--served`` runs the counterpart of ``run_served``: the game role's
+frame (``GameRole.execute``: the tick, the diff harvest, the interest
+lanes and the encode and fan-out to ``--sessions`` sessions, each with a
+live Player avatar seated as ``bench.py`` seats them), with the
+transport's writes counted instead of sent.  Three warm-up frames, then
+``--ticks`` timed frames, each ended by ``torch.cuda.synchronize()``.  Its
+line's metric is ``served_entity_ticks_per_sec``, with ``frame_ms_p50``/
+``p95``/``p99``, ``sync_msgs``/``sync_bytes``, ``serve_batch``/
+``serve_overlap``, ``tick_train`` and the ``StageClock`` waterfall
+(``pipeline``).
 """
 
 from __future__ import annotations
@@ -438,6 +452,106 @@ def run_rooms(args, device: torch.device) -> dict:
     }
 
 
+def build_served_role(n: int, sessions: int, device: torch.device, *, seed: int = 42,
+                      combat: bool = True, interest_radius: Optional[float] = None,
+                      serve_batch: Optional[bool] = None,
+                      serve_overlap: Optional[bool] = None,
+                      tick_train: Optional[int] = None, graph_tick: Optional[bool] = None,
+                      world: Optional[GameWorld] = None):
+    """``run_served``'s role: ``build_benchmark_world(n)`` with a Player
+    bank for ``sessions`` avatars, a ``GameRole`` over it, and ``sessions``
+    sessions seated as bench.py seats them (avatar at the origin of scene
+    1, group 0; conns 1000..1007).  Returns ``(role, sent)``: ``sent``
+    counts the messages and bytes handed to the transport."""
+    from .core.datatypes import next_pow2
+    from .net.roles.base import RoleConfig
+    from .net.roles.game import GameRole, Session
+    from .net.wire import Ident, ident_key
+
+    if world is None:
+        world = build_benchmark_world(n, combat=combat, seed=seed,
+                                      player_capacity=next_pow2(sessions + 8, lo=64),
+                                      device=device)
+    role = GameRole(RoleConfig(6, 0, "BenchGame", "127.0.0.1", 0), backend="py",
+                    world=world, cross_server_sync=False, interest_radius=interest_radius,
+                    serve_batch=serve_batch, serve_overlap=serve_overlap,
+                    tick_train=tick_train, graph_tick=graph_tick)
+    sent = {"msgs": 0, "bytes": 0}
+
+    def count_send(conn_id: int, msg_id: int, body: bytes) -> bool:
+        sent["msgs"] += 1
+        sent["bytes"] += len(body)
+        return True
+
+    role.server.send_raw = count_send
+    for i in range(sessions):
+        ident = Ident(svrid=99, index=i + 1)
+        sess = Session(ident=ident, conn_id=1000 + (i % 8), account=f"bot{i}")
+        g = role.kernel.create_object("Player", {"Name": f"Bot{i}"}, scene=1, group=0)
+        sess.guid = g
+        role.sessions[ident_key(ident)] = sess
+        role._guid_session[g] = ident_key(ident)
+    return role, sent
+
+
+def serve_frames(role, frames: int, now: float, sync: Callable[[], None]):
+    """``frames`` frames of ``role.execute``, each ended by ``sync()``;
+    returns (per-frame ms, the clock after the last frame)."""
+    dt = role.game_world.config.dt * 1.0001  # beat float >= dt jitter
+    ms = []
+    for _ in range(frames):
+        now += dt
+        t0 = time.perf_counter()
+        role.execute(now)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms, now
+
+
+def run_served(args, device: torch.device) -> dict:
+    """The served path: the tick with host observation plus the role's
+    per-frame flush (diff fetch, interest lanes, encode, fan-out)."""
+    n = int(args.entities)
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    role, sent = build_served_role(
+        n, int(args.sessions), device, seed=args.seed, combat=not args.no_combat,
+        interest_radius=args.interest_radius, serve_batch=args.serve_batch or None,
+        serve_overlap=args.serve_overlap or None, tick_train=args.train or None)
+    # warm-up: captures and the first full flush
+    _ms, now = serve_frames(role, 3, 1000.0, sync)
+    sent["msgs"] = sent["bytes"] = 0
+    t_all = time.perf_counter()
+    frame_ms, now = serve_frames(role, int(args.ticks), now, sync)
+    elapsed = time.perf_counter() - t_all
+    frame_hist = role.telemetry.registry.histogram(
+        "nf_bench_frame_seconds", "served-path frame wall time",
+        window=max(512, int(args.ticks)))
+    for ms in frame_ms:
+        frame_hist.observe(ms / 1e3)
+    p50, p95, p99 = _hist_pcts(frame_hist)
+    ticks = int(args.ticks) * max(1, role.tick_train)
+    out = {
+        "metric": "served_entity_ticks_per_sec",
+        "value": round(n * ticks / elapsed, 1),
+        "unit": "entity-ticks/s",
+        "detail": {
+            "entities": n, "frames": int(args.ticks), "ticks": ticks, "seed": args.seed,
+            "sessions": int(args.sessions), "elapsed_s": round(elapsed, 4),
+            "frame_ms_p50": p50, "frame_ms_p95": p95, "frame_ms_p99": p99,
+            "sync_msgs": sent["msgs"], "sync_bytes": sent["bytes"],
+            "interest_radius": args.interest_radius,
+            "serve_batch": bool(role.serve_batch), "serve_overlap": bool(role.serve_overlap),
+            "tick_train": int(role.tick_train), "combat": not args.no_combat,
+            "device": str(device), "binning": binning_mode(),
+            "pipeline": role.pipeline_stats(),
+            "costbook": costbook_detail(role.kernel.costbook, device),
+        },
+    }
+    if device.type == "cuda":
+        out["detail"].update(card_identity())
+    return out
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m noahgameframe_tpu_torch.bench")
     ap.add_argument("--entities", type=int, default=1_000_000)
@@ -464,6 +578,19 @@ def parse_args(argv=None):
                          "window runs 2x this)")
     ap.add_argument("--rooms-churn", type=int, default=8,
                     help="re-homes rotated through the spare slot per rung")
+    ap.add_argument("--served", action="store_true",
+                    help="time the game role's served frame (tick + diff flush + "
+                         "fan-out) instead of the world tick")
+    ap.add_argument("--sessions", type=int, default=50,
+                    help="served: sessions, each with a live Player avatar")
+    ap.add_argument("--interest-radius", type=float, default=None,
+                    help="served: per-session interest-filtered Position streams "
+                         "instead of group-wide broadcast")
+    ap.add_argument("--serve-batch", action="store_true",
+                    help="served: the batched serve engine (NF_SERVE_BATCH)")
+    ap.add_argument("--serve-overlap", action="store_true",
+                    help="served: serve the pre-tick snapshot while the tick runs "
+                         "(NF_SERVE_OVERLAP; implies --serve-batch)")
     return ap.parse_args(argv)
 
 
@@ -474,7 +601,7 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"bench: error: {e}", file=sys.stderr)
         return 2
-    run = run_rooms if args.rooms else run_bench
+    run = run_rooms if args.rooms else run_served if args.served else run_bench
     print(json.dumps(run(args, device)), flush=True)
     return 0
 

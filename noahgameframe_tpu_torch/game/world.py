@@ -1,7 +1,9 @@
 """GameWorld: one-call assembly of the standard game stack.
 
 Counterpart of ``noahgameframe_tpu/game/world.py`` with
-``middleware=False``: kernel, scene, scene process, components, property
+``middleware=False``, which is this port's default (``WorldConfig.middleware``;
+the JAX package's default is ``True``, and ``True`` raises
+``NotImplementedError`` here until the middleware stack is ported): kernel, scene, scene process, components, property
 config, stats, level, skills, movement, combat, regen and telemetry, in
 three plugins of one :class:`PluginManager` (``GameWorld.pm``), in the
 JAX package's order (which fixes the timer slots).  :meth:`GameWorld.start`
@@ -60,6 +62,10 @@ class WorldConfig:
     verlet_skin: Optional[float] = None
     # private is included so owner-only state reaches its own client
     diff_flags: tuple = ("public", "private", "upload")
+    # the items/hero/task/buff/social/SLG stack.  The JAX package defaults
+    # to True; the port has no middleware yet, so it defaults to False and
+    # True raises (never silently ignored)
+    middleware: bool = False
 
 
 class GameWorld:
@@ -69,6 +75,11 @@ class GameWorld:
     def __init__(self, config: Optional[WorldConfig] = None,
                  registry: Optional[ClassRegistry] = None, device=None):
         self.config = cfg = config or WorldConfig()
+        if cfg.middleware:
+            raise NotImplementedError(
+                "WorldConfig(middleware=True): the middleware stack (items, "
+                "heroes, tasks, buffs, social, SLG) is ROADMAP item 3 of the "
+                "port; build the world with middleware=False")
         self.kernel = Kernel(
             registry or standard_registry(),
             StoreConfig(
@@ -106,6 +117,12 @@ class GameWorld:
                 verlet_skin=cfg.verlet_skin,
             )
         self.regen = RegenModule(period_s=cfg.regen_period_s) if cfg.regen else None
+        # the middleware modules a game role looks up; None on a world
+        # without the middleware stack, where its handlers are no-ops
+        self.pack = self.items = self.equip = self.heroes = self.tasks = None
+        self.buffs = self.team = self.mail = self.rank = self.shop = None
+        self.friends = self.guilds = self.gm = self.pvp = None
+        self.slg_building = self.slg_shop = None
         # registry, tracer, census and the kernel's cost book; attached to
         # the kernel in after_init
         self.telemetry = TelemetryModule()

@@ -16,7 +16,9 @@ names the stage of every device launch.
 
 The entry points dispatch through the kernel's :class:`CostBook`:
 
-- :meth:`tick` (``kernel.step``) runs one observed step eagerly;
+- :meth:`tick` (``kernel.step``) runs one observed step: eagerly, or,
+  after :meth:`set_graph_tick` on a CUDA device, as a captured CUDA graph
+  (what the game role's frames run);
 - :meth:`run_device` (``kernel.run``) advances n steps with no host sync.
   On a CUDA device the step is captured once as a CUDA graph and replayed
   n times; the JAX package's ``lax.fori_loop`` dispatch becomes that
@@ -321,6 +323,13 @@ class Kernel(Module):
         self.digest_enabled = False
         # optional telemetry.SpanTracer for host spans; None = no cost
         self.tracer = None
+        # honest per-stage timing (NF_STAGE_TIMING=1, set by GameRole from
+        # telemetry/pipeline.stage_timing_enabled): synchronize after the
+        # dispatch so the kernel.dispatch span measures device time, not
+        # the launch.  Never on by default: it serializes the device queue
+        self.stage_timing = False
+        # observed ticks as a CUDA graph (set_graph_tick); off by default
+        self.graph_tick = False
 
     # -- build --------------------------------------------------------------
 
@@ -389,9 +398,22 @@ class Kernel(Module):
 
     def compile(self) -> None:
         if self._step_fn is None:
+            graph = self.graph_tick and self.device.type == "cuda"
             self._step_fn = self.costbook.wrap(
                 "kernel.step", lambda st: self._step(st, observe=True),
-                stage="tick", statics=self._statics)
+                stage="tick", statics=self._statics, graph=graph,
+                launch_counters=KERNELS if graph else None)
+
+    def set_graph_tick(self, on: bool) -> None:
+        """Run :meth:`tick` / :meth:`tick_begin` as a CUDA graph on a card
+        (a sanctioned re-capture when it changes).  Off by default; the
+        graph's state banks are updated in place by each replay."""
+        on = bool(on)
+        if on != self.graph_tick:
+            self.graph_tick = on
+            if self._step_fn is not None:
+                self._step_fn = None
+                self.costbook.generation_bump(f"graph_tick:{int(on)}")
 
     def invalidate(self) -> None:
         """Drop every captured graph, and the registered aux entries, whose
@@ -573,6 +595,8 @@ class Kernel(Module):
         self._ensure_aux()
         with self._span("kernel.dispatch"):
             self.state, raw = self._step_fn(self.state)
+            if self.stage_timing and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.tick_count += 1
         return raw
 
@@ -698,6 +722,8 @@ class Kernel(Module):
         self._ensure_aux()
         with self._span("kernel.dispatch"):
             self.state, raw = self._train_fn(self.state)
+            if self.stage_timing and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.tick_count += self._train_k
         self.train_dispatches += 1
         self.train_ticks += self._train_k

@@ -1,5 +1,8 @@
-"""The wire format the persistence slice needs: the message codec of
-``net/wire.py`` (``Message``, ``Ident``, the property and record lists,
-``RoleLiteInfo``), its protocol constants and the retry policy.  The rest
-of the JAX package's ``net/`` (transports, framing, roles) comes with the
-serving edge."""
+"""The host edge of the framework: NF framing and the MsgBase envelope
+(``framing``, ``wire``), the pure-Python and native (``native/nfnet.cc``
+over ctypes) transports, the net modules with their dispatch tables
+(``module``), the metrics HTTP server (``http``), the SLG and shop wire
+families, the batched serving edge's session table (``serving``) and the
+game role (``roles``).  Counterpart of ``noahgameframe_tpu/net``; the
+world, proxy, master and login roles, the cluster, chaos and failover
+come with the cluster slice.  Submodules are imported by path."""

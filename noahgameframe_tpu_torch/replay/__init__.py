@@ -1,13 +1,17 @@
-"""Deterministic flight recorder, the parts that need no game role.
+"""Deterministic flight recorder.
 
 - :mod:`journal`: the append-only, segmented, CRC-framed tick journal in
   the JAX package's byte format (a journal written by either package
   reads back in the other);
-- :mod:`bisect`: the first divergent tick between two digest streams, and
-  a field-level diff of two world states.
+- :mod:`replayer`: an offline game role re-executes a journal through its
+  dispatch tables and tick and checks every per-tick digest
+  (``replay_journal``, ``make_offline_role``);
+- :mod:`bisect`: the first divergent tick between two digest streams, a
+  field-level diff of two world states, ``dump_divergence`` over two
+  journals, and the ``python -m noahgameframe_tpu_torch.replay.bisect``
+  command line.
 
-Replaying a journal through a game role (``replay_journal``) comes with
-the serving edge.
+The replayer imports the game role, so it is imported by path, not here.
 """
 
 from .journal import (  # noqa: F401

@@ -9,10 +9,11 @@ boundary and binary search finds it in O(log n) digest compares instead
 of a linear scan.  With the tick in hand, replay both runs up to it and
 diff the flattened WorldState field by field.
 
-Counterpart of ``noahgameframe_tpu/replay/bisect.py``: the search and the
-field diff, over the port's checkpoint flattening (the JAX package's keys
-and dtypes).  Replaying a journal to the divergent tick needs the game
-role the journal was recorded from, which comes with the serving edge.
+Counterpart of ``noahgameframe_tpu/replay/bisect.py``: the search, the
+field diff over the port's checkpoint flattening (the JAX package's keys
+and dtypes), :func:`dump_divergence` (replay two journals up to their
+first divergent tick and diff the states) and :func:`main`, the
+digest-only command line.
 """
 
 from __future__ import annotations
@@ -101,3 +102,64 @@ def field_diff(state_a, state_b, max_per_key: int = 8) -> List[dict]:
                           "b": flat_b[t].item()})
         out.append({"key": key, "count": int(idx.shape[0]), "cells": cells})
     return out
+
+
+def dump_divergence(
+    journal_a,
+    journal_b,
+    world_factory=None,
+    checkpoint_a=None,
+    checkpoint_b=None,
+    max_per_key: int = 8,
+    device=None,
+) -> dict:
+    """End-to-end bisect: locate the first divergent tick between two
+    journaled runs, replay each side up to it, and return the field
+    diff.  Both replays run on ``device`` (``None`` = ``"cuda"``) unless a
+    ``world_factory`` supplies the worlds — the point is to materialize the
+    states the digests fingerprinted."""
+    from .journal import read_ticks
+    from .replayer import make_offline_role, replay_journal
+
+    da, db = read_ticks(journal_a), read_ticks(journal_b)
+    tick = bisect_divergence(da, db)
+    if tick is None:
+        return {"tick": None, "diff": []}
+    states = []
+    for jdir, ckpt in ((journal_a, checkpoint_a), (journal_b, checkpoint_b)):
+        role = make_offline_role(
+            world_factory() if world_factory is not None else None,
+            device=device,
+        )
+        try:
+            replay_journal(jdir, checkpoint=ckpt, role=role, upto=tick)
+            states.append(role.kernel.state)
+        finally:
+            role.shut()
+    return {"tick": tick, "diff": field_diff(*states, max_per_key=max_per_key)}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m noahgameframe_tpu_torch.replay.bisect A_JOURNAL B_JOURNAL``
+    — digest-only bisection (no state materialization)."""
+    import argparse
+
+    from .journal import read_ticks
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("journal_a")
+    ap.add_argument("journal_b")
+    args = ap.parse_args(argv)
+    da, db = read_ticks(args.journal_a), read_ticks(args.journal_b)
+    overlap = len(set(da) & set(db))
+    tick = bisect_divergence(da, db)
+    if tick is None:
+        print(f"no divergence across {overlap} common ticks")
+        return 0
+    print(f"first divergent tick: {tick} "
+          f"(a={da[tick]:#010x} b={db[tick]:#010x})")
+    return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

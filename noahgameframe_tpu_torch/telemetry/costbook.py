@@ -42,6 +42,8 @@ __all__ = ["CostBook", "CostEntry"]
 
 #: re-capture events kept in the book's ring
 _EVENT_RING = 128
+# GameRole samples the device-memory census every this many ticks
+HBM_SAMPLE_FRAMES = 64
 #: capture records kept per book (a runaway backstop)
 _COMPILE_LOG_CAP = 4096
 #: eager runs on a side stream before a capture (allocator and lazy

@@ -1,8 +1,8 @@
 """TelemetryModule: one registry per world, every world source wired in.
 
-Counterpart of the parts of ``noahgameframe_tpu/telemetry/module.py``
-that a world has (the net, pool, chaos and role sources come with the
-serving edge).  Sources are sampled lazily at scrape time:
+Counterpart of ``noahgameframe_tpu/telemetry/module.py`` without the
+chaos source (``add_chaos_source``), which comes with the cluster roles.
+Sources are sampled lazily at scrape time:
 
 - frame latency: :class:`~noahgameframe_tpu_torch.utils.metrics.TickMetrics`
   observing into ``nf_frame_seconds``, plus the quantile gauges
@@ -16,12 +16,22 @@ serving edge).  Sources are sampled lazily at scrape time:
 - the cost book: ``nf_recompiles_total{entry,cause}``,
   ``nf_compiles_total`` (captures), ``nf_compile_seconds_total``
   (warm-up plus capture), ``nf_graph_launches_per_replay`` and the
-  ``nf_hbm_*`` memory gauges.
+  ``nf_hbm_*`` memory gauges;
+- a role's net sources: per-opcode ``nf_net_msgs_total`` /
+  ``nf_net_bytes_total`` (direction/link/opcode labels) from every
+  NetServerModule and NetClientModule pool (:meth:`add_net_source`), the
+  proxy's relay counters, ``nf_reconnects_total`` per pool
+  (:meth:`add_pool_source`) and the ``nf_role_info`` identity gauge
+  (:meth:`attach_role`).
+
+:meth:`mount` routes ``/metrics`` and ``/costbook`` on a net/http.py
+HttpServer; ServerRole.serve_metrics() starts a dedicated one.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import json
+from typing import Dict, Iterable, Optional, Tuple
 
 from ..kernel.module import Module
 from .costbook import CostBook
@@ -48,8 +58,31 @@ class TelemetryModule(Module):
         self.census = MemoryCensus()
         # replaced by the kernel's book in attach_kernel
         self.costbook = CostBook()
+        self._net_sources: Dict[str, object] = {}
+        self._pool_sources: Dict[str, object] = {}  # link -> NetClientModule
         self._kernel_attached = False
+        self._role_attached = False
         reg = self.registry
+        reg.register_callback(
+            "nf_net_msgs_total", lambda: self._net_samples(0),
+            kind="counter", help="messages per link/direction/opcode",
+        )
+        reg.register_callback(
+            "nf_net_bytes_total", lambda: self._net_samples(1),
+            kind="counter", help="payload bytes per link/direction/opcode",
+        )
+        reg.register_callback(
+            "nf_relay_msgs_total", lambda: self._relay_samples(0),
+            kind="counter", help="proxy-forwarded messages per link/opcode",
+        )
+        reg.register_callback(
+            "nf_relay_seconds_total", lambda: self._relay_samples(1),
+            kind="counter", help="cumulative proxy forward latency per link/opcode",
+        )
+        reg.register_callback(
+            "nf_reconnects_total", self._pool_samples, kind="counter",
+            help="re-dial attempts after a link failure, per pool/server",
+        )
         reg.register_callback(
             "nf_frame_latency_ms", self._frame_quantiles, kind="gauge",
             help="frame latency quantiles in ms (exact, window-based)",
@@ -94,6 +127,53 @@ class TelemetryModule(Module):
         h = self.tick.hist
         for q in (50, 95, 99):
             yield ({"quantile": f"p{q}"}, h.percentile(q) * 1e3)
+
+    def add_net_source(self, link: str, counters) -> None:
+        """Register a NetCounters (net/module.py) under a link label."""
+        self._net_sources[str(link)] = counters
+
+    def add_pool_source(self, link: str, pool) -> None:
+        """Register a NetClientModule whose ``retries_total`` feeds
+        ``nf_reconnects_total`` under a link label."""
+        self._pool_sources[str(link)] = pool
+
+    def _pool_samples(self) -> Iterable[Tuple[dict, float]]:
+        for link, pool in sorted(self._pool_sources.items()):
+            for sid in sorted(pool.retries_total):
+                yield ({"link": link, "server_id": str(sid)}, pool.retries_total[sid])
+
+    def _net_samples(self, which: int) -> Iterable[Tuple[dict, float]]:
+        for link, c in sorted(self._net_sources.items()):
+            for direction, d in (
+                ("in", (c.in_msgs, c.in_bytes)[which]),
+                ("out", (c.out_msgs, c.out_bytes)[which]),
+            ):
+                for opcode in sorted(d):
+                    yield ({"link": link, "direction": direction, "opcode": str(opcode)},
+                           d[opcode])
+
+    def _relay_samples(self, which: int) -> Iterable[Tuple[dict, float]]:
+        """which: 0 = relayed message count, 1 = forward latency seconds
+        (NetCounters.count_relay; only a proxy feeds these)."""
+        for link, c in sorted(self._net_sources.items()):
+            msgs = getattr(c, "relay_msgs", None)
+            if not msgs:
+                continue
+            for opcode in sorted(msgs):
+                v = msgs[opcode] if which == 0 else c.relay_ns.get(opcode, 0) / 1e9
+                yield ({"link": link, "opcode": str(opcode)}, v)
+
+    def attach_role(self, role) -> None:
+        """Wire a ServerRole: identity gauge + its net counter sources.
+        (Frame timing attaches by the role adopting ``self.tick``.)"""
+        if self._role_attached:
+            return
+        self._role_attached = True
+        info = self.registry.gauge(
+            "nf_role_info", "role identity (value is always 1)", ("role", "server_id"),
+        )
+        info.set(1, role=type(role).__name__, server_id=str(role.config.server_id))
+        self.add_net_source("server", role.server.counters)
 
     def attach_kernel(self, kernel) -> None:
         """Wire a Kernel: counter bank, train counters, ticks, entities,
@@ -173,6 +253,18 @@ class TelemetryModule(Module):
 
     def after_init(self) -> None:
         self.attach_kernel(self.kernel)
+
+    def costbook_handler(self, _path=None, _params=None):
+        """HTTP handler for ``/costbook``: the book's full snapshot with a
+        fresh device-memory census folded in."""
+        self.costbook.hbm_sample()
+        body = json.dumps(self.costbook.snapshot()).encode()
+        return 200, "application/json", body
+
+    def mount(self, http) -> None:
+        """Route /metrics and /costbook on an existing HttpServer."""
+        http.route("/metrics", self.registry.handler)
+        http.route("/costbook", self.costbook_handler)
 
     def exposition(self) -> str:
         return self.registry.exposition()

@@ -452,3 +452,14 @@ def test_host_layer_script_graph_matches_eager(cuda):
     entry = a.kernel.costbook.entry("kernel.train")
     assert entry.compiles == 5 and entry.last["graph"] is True
     assert sorted(entry.causes) == ["static:att_bucket", "static:forced_diff", "static:rec_diff"]
+
+
+def test_served_role_on_cuda_matches_cpu(cuda):
+    """The served frame (graph tick, batched serve lanes) at 65,536 NPCs
+    and 64 sessions sends the same bytes and digests on the card as on
+    the CPU (chip_smoke.py phase (i)'s stream, at this size)."""
+    import chip_smoke
+
+    a = chip_smoke.stream_run(65536, 64, "cuda", 8, serve_batch=True)
+    b = chip_smoke.stream_run(65536, 64, "cpu", 8, serve_batch=True)
+    assert a == b

@@ -141,6 +141,36 @@ def test_default_device_is_cuda(monkeypatch):
         torch_world(64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GameWorld()
+    from noahgameframe_tpu_torch.net.roles.base import RoleConfig
+    from noahgameframe_tpu_torch.net.roles.game import GameRole
+    from noahgameframe_tpu_torch.replay.replayer import make_offline_role
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GameRole(RoleConfig(6, 0, "G", "127.0.0.1", 0), backend="py")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_offline_role(backend="py")
+    role = make_offline_role(backend="py", device="cpu")
+    assert role.kernel.device.type == "cpu" and not role.kernel.graph_tick
+    role.shut()
+    # a given world's device is followed
+    role = GameRole(RoleConfig(6, 0, "G", "127.0.0.1", 0), backend="py",
+                    world=torch_world(64, device="cpu"))
+    assert role.kernel.device.type == "cpu"
+    role.shut()
+
+
+def test_middleware_world_raises_until_ported():
+    """WorldConfig.middleware defaults to False in the port (the JAX
+    package's default is True) and True raises, naming the roadmap item."""
+    from noahgameframe_tpu_torch.game.world import WorldConfig
+
+    assert WorldConfig().middleware is False
+    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
+        GameWorld(WorldConfig(middleware=True), device="cpu")
+    w = GameWorld(device="cpu")
+    assert all(getattr(w, a) is None for a in (
+        "buffs", "team", "mail", "rank", "shop", "friends", "guilds", "gm", "pvp",
+        "slg_building", "slg_shop", "pack", "items", "equip", "heroes", "tasks"))
 
 
 def test_store_key_and_verlet_cache_default_to_cuda(monkeypatch):
