@@ -105,7 +105,23 @@ non-zero without printing a result:
    frames recorded on the card replays digest-clean on the card and on
    the CPU, and a perturbed replay is bisected to the injected tick; then
    the bench's ``--served`` line at 100k and 500 sessions.  The kernel
-   table gains each kernel's launches on this path (``served_launches``).
+   table gains each kernel's launches on this path (``served_launches``);
+(j) the five-role cluster (run after (i)): ``LocalCluster(backend="auto",
+   http_port=0, n_games=2, device="cuda")`` over two 100,000-NPC worlds
+   of the served recipe (radius 8, batched serving, graph ticks, a WAL and
+   a checkpoint dir a game): 64 ``GameClient``s log in through login,
+   world, proxy and game (the master's ``/json`` lists the five roles);
+   tests/test_roles.py's flows; 64 chats' round trip and each game's
+   frame p50/p99; 8 switches from Game1 to Game2; a failover as
+   scripts/failover_smoke.run does (24 sessions re-homed from the WAL,
+   no drop, chat replayed in order); chaos and a revive as
+   scripts/chaos_smoke.run does, the revived banks equal to a control
+   world's, with the device memory around two kill/revive cycles; the
+   login and chat again under ``NF_PALLAS=2``; the lease cadence, the
+   longest pump round and every lease expiry; and a lockstep script at
+   4,096 NPCs and 8 clients on the card and on the CPU with equal digests
+   and client logs (``phase_cluster``).  The kernel table gains each
+   kernel's launches on this path (``cluster_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -116,6 +132,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1957,17 +1974,17 @@ def journal_run(root, device: str):
     return jdir, cdir
 
 
-def pinned_world(n: int, players: int, device: str):
+def pinned_world(n: int, players: int, device: str, guid_base: int = 7_000_000):
     """``build_benchmark_world(n)``'s recipe with a Player bank for
-    ``players`` and the guid allocator pinned before the NPCs are seeded,
-    so two builds (two devices, two engines) mint the same guids and send
-    the same bytes."""
+    ``players`` and the guid allocator pinned (at ``guid_base``) before the
+    NPCs are seeded, so two builds (two devices, two engines) mint the same
+    guids and send the same bytes."""
     extent = max(64.0, float(np.sqrt(n / 0.4)))
     w = gw.GameWorld(gw.WorldConfig(
         npc_capacity=1 << int(np.ceil(np.log2(max(n, 64)))), extent=extent, seed=SEED,
         player_capacity=1 << int(np.ceil(np.log2(max(players, 64))))), device=device)
     w.start()
-    w.kernel.store.guids.pin(7_000_000)
+    w.kernel.store.guids.pin(guid_base)
     w.scene.create_scene(1, width=extent)
     w.seed_npcs(n)
     return w
@@ -2080,6 +2097,1035 @@ def phase_served(card: str):
     return served_launches
 
 
+# -- (j) the five-role cluster ---------------------------------------------------------
+CLUSTER_N = 100_000
+CLUSTER_CLIENTS = 64
+CLUSTER_PLAYERS = 128  # each game's Player bank: its clients, the switched and the re-homed
+CLUSTER_KW = {"interest_radius": SERVED_RADIUS, "serve_batch": True}
+# lease cadence for the card run (see phase_cluster's docstring): keepalive
+# reports every KEEPALIVE_S, SUSPECT after LEASE_SUSPECT_S and DOWN after
+# LEASE_DOWN_S of silence, sized above the longest pump stall measured
+KEEPALIVE_S, LEASE_SUSPECT_S, LEASE_DOWN_S = 0.25, 3.0, 6.0
+GUID_BASE = {"Game1": 7_000_000, "Game2": 9_000_000}
+SWITCHES = 8
+AFTER_CHATS = 5  # numbered chats each orphaned client sends into the outage
+EXTRA_TICKS = 20  # revived-world ticks before the control comparison
+LOCKSTEP_N, LOCKSTEP_CLIENTS = 4096, 8
+
+
+def cluster_package(name: str = "noahgameframe_tpu_torch"):
+    """The modules a cluster script needs, taken from one package by name:
+    the same script drives the port's cluster here and, in the CPU tests,
+    the JAX package's."""
+    import importlib
+    from types import SimpleNamespace
+
+    def m(sub):
+        return importlib.import_module(f"{name}.{sub}")
+
+    return SimpleNamespace(name=name, client=m("client"), roles=m("net.roles"),
+                           wire=m("net.wire"), defines=m("net.defines"),
+                           transport=m("net.transport"), datatypes=m("core.datatypes"),
+                           world=m("game.world"), chaos=m("net.chaos"),
+                           codec=m("persist.codec"), writebehind=m("persist.writebehind"),
+                           persist=m("persist"), checkpoint=m("persist.checkpoint"),
+                           gdefines=m("game.defines"))
+
+
+def recording_client(P, account: str):
+    """A ``GameClient`` whose every received frame, ``(msg id, envelope
+    bytes)``, is appended to ``client.log`` across its dials (login, then
+    the proxy)."""
+    cli = P.client.GameClient(account)
+    cli.log = []
+    dial = cli.connect
+
+    def connect(host, port):
+        dial(host, port)
+        conn, poll = cli._conn, cli._conn.poll
+
+        def recorded():
+            evs = poll()
+            cli.log.extend((int(ev.msg_id), bytes(ev.body)) for ev in evs
+                           if ev.kind == P.transport.EV_MSG)
+            return evs
+
+        conn.poll = recorded
+
+    cli.connect = connect
+    return cli
+
+
+def canonical_log(P, log) -> dict:
+    """A client log with what differs between two equal runs masked:
+    frame-trace sidecars (wall-clock stamps) are left out, and the connect
+    grant's proxy port and connect key (random, ``WorldRole._mint_key``)
+    are zeroed.  The rest is grouped by message id and each group sorted:
+    arrival order across links (the world's cross-game relay) is not part
+    of a run's result."""
+    wire, MsgID = P.wire, P.defines.MsgID
+    out: dict = {}
+    for mid, body in log:
+        if mid in P.defines.TRACE_MSG_IDS:
+            continue
+        if mid == int(MsgID.ACK_CONNECT_WORLD):
+            base, ack = wire.unwrap(body, wire.AckConnectWorldResult)
+            ack.world_port, ack.world_key = 0, b""
+            base.msg_data = ack.encode()
+            body = base.encode()
+        out.setdefault(mid, []).append(bytes(body).hex())
+    return {m: sorted(v) for m, v in sorted(out.items())}
+
+
+def mirror_view(cli) -> dict:
+    """A client's mirror as plain values (idents as pairs)."""
+    def plain(v):
+        if hasattr(v, "svrid"):
+            return (v.svrid, v.index)
+        if isinstance(v, (list, tuple)):
+            return tuple(plain(x) for x in v)
+        if isinstance(v, dict):
+            return {k: plain(x) for k, x in v.items()}
+        return v
+
+    return {k: (plain(o.ident), o.class_id, o.config_id, o.scene_id, plain(o.position),
+                plain(o.properties), plain(o.records)) for k, o in sorted(cli.objects.items())}
+
+
+LOGIN_STEPS = ("login connect", "login ack", "world list", "world grant", "proxy connect",
+               "key verify", "server select", "role list", "enter game")
+
+
+class ClusterDriver:
+    """One script's hold on a LocalCluster: its clients (pumped with every
+    cluster round), login through the full chain, and waits that fail with
+    what they waited for.
+
+    With ``lockstep`` the game roles tick only in :meth:`tick`: between
+    calls their frames see no tick due (``_last_tick`` held in the
+    future), so every client action lands between the same two ticks in
+    any run, and two runs of one script (two packages, two devices) send
+    the same frames.  Build the driver before ``cluster.start()``, which
+    pumps the games.  Without it the games tick on the wall clock, as
+    deployed."""
+
+    def __init__(self, P, cluster, timeout: float = 30.0, lockstep: bool = False) -> None:
+        self.P, self.c, self.timeout = P, cluster, timeout
+        self.lockstep = lockstep
+        self.clients: dict = {}
+        self.live: list = []  # clients pumped with the cluster
+        self.max_round_s = 0.0  # the longest pump round seen (leases must outlast it)
+        self._t_round = None
+        if lockstep:
+            self.hold()
+
+    def hold(self) -> None:
+        """Lockstep: no game ticks until :meth:`tick` (call again after a
+        revive adds a role)."""
+        for g in self.c.games:
+            g._last_tick = math.inf
+
+    def tick(self, n: int = 1) -> None:
+        """Advance every game ``n`` frames: in lockstep each frame is one
+        explicit ``execute`` with a tick due; otherwise wait for the wall
+        clock's frames."""
+        if self.lockstep:
+            for _ in range(n):
+                for g in self.c.games:
+                    g._last_tick = -math.inf
+                    g.execute()
+                    g._last_tick = math.inf
+            return
+        goal = [(g, g.kernel.tick_count + n) for g in self.c.games]
+        self.wait(lambda: all(g.kernel.tick_count >= t for g, t in goal), f"{n} frames")
+
+    def synced(self, pairs, props=("MAXEXP",)) -> None:
+        """Wait until each ``(watcher, owner, game)``'s mirror of the owner
+        holds the game's values of ``props`` (a tick's derived diffs, such
+        as MAXEXP after a level change, reach clients after the tick)."""
+        def ok():
+            for watcher, owner, game in pairs:
+                o = watcher.objects.get(self.key(owner))
+                if o is None:
+                    return False
+                for p in props:
+                    if o.properties.get(p) != game.kernel.get_property(self.guid(owner), p):
+                        return False
+            return True
+
+        self.wait(ok, f"the mirrors caught up on {props}")
+
+    def _stir(self) -> None:
+        now = time.perf_counter()
+        if self._t_round is not None:
+            self.max_round_s = max(self.max_round_s, now - self._t_round)
+        self._t_round = now
+        for cli in self.live:
+            cli.execute()
+
+    def pump_until(self, cond, timeout=None) -> bool:
+        self._t_round = None
+        return self.c.pump_until(cond, extra=self._stir, timeout=timeout or self.timeout)
+
+    def wait(self, cond, what: str, timeout=None) -> None:
+        check(self.pump_until(cond, timeout), f"cluster: {what}")
+
+    def pump(self, rounds: int) -> None:
+        self._t_round = None
+        self.c.pump(extra=self._stir, rounds=rounds)
+
+    def client(self, account: str):
+        cli = recording_client(self.P, account)
+        self.clients[account] = cli
+        self.live.append(cli)
+        return cli
+
+    def login_all(self, specs, timeout=None):
+        """Log each ``(account, role name, game id)`` in through login,
+        world, proxy and game, all at once (each client advances as soon
+        as its own answer arrives); returns each client's login-to-entered
+        seconds."""
+        c = self.c
+        fsm = []
+        for account, name, game_id in specs:
+            cli = self.client(account)
+            steps = [
+                (lambda cli=cli: cli.connect("127.0.0.1", c.login.config.port),
+                 lambda cli=cli: cli.connected),
+                (cli.login, lambda cli=cli: cli.logged_in),
+                (cli.request_world_list, lambda cli=cli: cli.worlds),
+                (lambda cli=cli: cli.connect_world(cli.worlds[0].server_id),
+                 lambda cli=cli: cli.world_grant is not None),
+                (cli.connect_proxy, lambda cli=cli: cli.connected),
+                (cli.verify_key, lambda cli=cli: cli.key_verified),
+                (lambda cli=cli, g=game_id: cli.select_server(g),
+                 lambda cli=cli: cli.server_selected),
+                (lambda cli=cli, n=name: cli.create_role(n), lambda cli=cli: cli.roles),
+                (lambda cli=cli, n=name: cli.enter_game(n), lambda cli=cli: cli.entered),
+            ]
+            steps[0][0]()
+            fsm.append([cli, steps, 0, time.perf_counter(), None])
+
+        def advance():
+            for st in fsm:
+                cli, steps, i, _t0, done = st
+                if done is None and steps[i][1]():
+                    if i + 1 == len(steps):
+                        st[4] = time.perf_counter()
+                    else:
+                        st[2] = i + 1
+                        steps[i + 1][0]()
+            return all(st[4] is not None for st in fsm)
+
+        ok = self.pump_until(advance, timeout)
+        stuck = [(st[0].account, LOGIN_STEPS[st[2]]) for st in fsm if st[4] is None]
+        check(ok, f"cluster: every client entered (stalled: {stuck[:8]})")
+        return [st[4] - st[3] for st in fsm]
+
+    def guid(self, cli):
+        return self.P.datatypes.Guid(cli.player_guid.svrid, cli.player_guid.index)
+
+    @staticmethod
+    def key(cli):
+        return (cli.player_guid.svrid, cli.player_guid.index)
+
+    @staticmethod
+    def session(game, account: str):
+        return next((s for s in game.sessions.values()
+                     if s.account == account and s.guid is not None), None)
+
+    def close(self, cli, game=None) -> None:
+        """Close a client; with ``game``, wait until its session left it."""
+        cli.close()
+        if cli in self.live:
+            self.live.remove(cli)
+        if game is not None:
+            self.wait(lambda: self.session(game, cli.account) is None,
+                      f"{cli.account}'s session left {game.config.name}")
+
+
+def pair_flows(d, a, b, game, move=(3.0, 4.0, 0.0)) -> None:
+    """tests/test_roles.py's two-client flows on one game: ``a`` and ``b``
+    see each other, a move reaches ``b``'s mirror through the diff (or
+    interest) stream, a chat echoes, a skill drops ``b``'s HP by the
+    role's damage on the server and in ``b``'s mirror, and a bag record
+    row added, updated and removed on the server reaches ``a``'s mirror."""
+    ak, bk = d.key(a), d.key(b)
+    d.wait(lambda: bk in a.objects and ak in b.objects, "the two clients see each other")
+    a.move_to(*move)
+    d.wait(lambda: b.moves, "the move multicast")
+    check(abs(b.moves[-1].target_pos[0].x - move[0]) < 1e-5, "the move's target")
+    d.wait(lambda: ak in b.objects and abs(
+        b.objects[ak].properties.get("Position", (0.0, 0.0, 0.0))[0] - move[0]) < 0.05,
+        "the mover's Position reached the other mirror")
+    n0 = len(b.chat_log)
+    a.chat("hello")
+    d.wait(lambda: len(b.chat_log) > n0 and b.chat_log[-1][1] == "hello", "the chat echo")
+    k, gb = game.kernel, d.guid(b)
+    hp0 = int(k.get_property(gb, "HP"))
+    n0 = len(b.skills)
+    a.use_skill(b.player_guid)
+    d.wait(lambda: len(b.skills) > n0, "the skill multicast")
+    hp1 = int(k.get_property(gb, "HP"))
+    check(hp1 == hp0 - game.skill_damage, f"the skill dropped HP by {game.skill_damage}")
+    d.wait(lambda: b.objects[bk].properties.get("HP") == hp1, "the HP drop reached the mirror")
+    ga = d.guid(a)
+    k.state, row = k.store.record_add_row(k.state, ga, "BagItemList",
+                                          {"ConfigID": "potion_small", "ItemCount": 3})
+    cells = lambda: a.objects[ak].records.get("BagItemList", {})  # noqa: E731
+    d.wait(lambda: cells().get((row, 0)) == "potion_small" and cells().get((row, 1)) == 3,
+           "the added bag row reached the mirror")
+    k.state = k.store.record_set(k.state, ga, "BagItemList", row, "ItemCount", 5)
+    d.wait(lambda: cells().get((row, 1)) == 5, "the bag row's count update")
+    k.state = k.store.record_remove_row(k.state, ga, "BagItemList", row)
+    d.wait(lambda: (row, 0) not in cells(), "the bag row's removal")
+
+
+
+def failover_plan(P, seed: int):
+    """scripts/failover_smoke.py's fault plan: dups and delays on the dying
+    game's links, dups on the survivor's, and a wedged store flusher under
+    Game1, so its last saves live only in the WAL."""
+    ch = P.chaos
+    return ch.FaultPlan(seed=seed, links={
+        "proxy5.games->6": ch.LinkFaults(dup=0.05, delay=0.05, delay_polls=2),
+        "proxy5.games->16": ch.LinkFaults(dup=0.02),
+        "game6.world": ch.LinkFaults(dup=0.02),
+    }, stores={"game6.store": ch.StoreFaults(fail_first=1_000_000)})
+
+
+def failover_kill(d, game1, game2, clients, kv, wal_dir, after_chats: int = AFTER_CHATS):
+    """scripts/failover_smoke.run's kill and re-home, for ``clients``
+    entered on ``game1`` (a LocalCluster with per-game WAL and checkpoint
+    dirs over the store ``kv``, under :func:`failover_plan`): distinct
+    saves staged to the WAL, a checkpoint, a hard kill, numbered chats
+    into the outage, and the world's re-home of every session onto
+    ``game2``.  Returns ``(checks, info)``: each check by name, and the
+    blip (kill to last re-home), the parked frames and the bases."""
+    P, c = d.P, d.c
+    proxy, world = c.proxy, c.world
+    checks: dict = {}
+    sess = {cl.account: d.session(game1, cl.account) for cl in clients}
+    selfids = {(s.guid.head, s.guid.data) for s in sess.values() if s is not None}
+    checks["sessions bound on the dying game"] = all(s is not None for s in sess.values())
+    check(checks["sessions bound on the dying game"], "failover: sessions bound")
+    k1, agent1 = game1.kernel, game1.data_agent
+    pre, pre_blob, keys = {}, {}, {}
+    for i, cl in enumerate(clients):
+        s = sess[cl.account]
+        k1.set_property(s.guid, "Gold", 1000 + 37 * i)
+        k1.set_property(s.guid, "Level", 9)
+        pre[cl.account] = {p: k1.get_property(s.guid, p) for p in ("Name", "Level", "Gold")}
+        pre_blob[cl.account] = P.codec.snapshot_object(k1.store, k1.state, s.guid, agent1.flags)
+        agent1.save(s.guid)
+        keys[cl.account] = agent1._key_of(s.guid)
+    game1.checkpoint_now()  # checkpoint + WAL barrier
+    view = P.writebehind.read_peer_wal(wal_dir)
+    checks["WAL holds bit-identical pre-kill blobs"] = all(
+        view.pending.get(keys[a]) == pre_blob[a] for a in keys)
+    checks["store never saw the final saves"] = all(kv.get(keys[a]) != pre_blob[a] for a in keys)
+    done0 = len(world.failover.completed)
+    n = len(clients)
+    t = {"rehomed": None, "max_pending": 0}
+
+    def watch():
+        t["max_pending"] = max(t["max_pending"], world.failover.pending_count())
+        if t["rehomed"] is None and sum(
+                1 for e in world.failover.completed[done0:] if tuple(e["selfid"]) in selfids) >= n:
+            t["rehomed"] = time.perf_counter()
+
+    dead = game1.config.server_id
+    t_kill = time.perf_counter()
+    c.kill_role(game1, hard=True)
+    checks["proxy saw the link drop"] = d.pump_until(
+        lambda: watch() or dead not in proxy.games.connected_servers(), timeout=10.0)
+    # the first chat goes out before the next pump round, so it reaches
+    # the proxy while the binding is dead and parks
+    for cl in clients:
+        cl.chat(f"after-{cl.account}-0")
+    for cl in clients:
+        cl.execute()
+    sent = [1]
+
+    def mine(cl):
+        pre_ = f"after-{cl.account}-"
+        return [x for _w, x in cl.chat_log if x.startswith(pre_)]
+
+    def settled():
+        watch()
+        if sent[0] < after_chats:
+            for cl in clients:
+                cl.chat(f"after-{cl.account}-{sent[0]}")
+            sent[0] += 1
+            return False
+        return (all(d.session(game2, cl.account) is not None for cl in clients)
+                and world.failover.pending_count() == 0 and proxy.parking.depth() == 0
+                and all(len(set(mine(cl))) >= after_chats for cl in clients))
+
+    checks["sessions re-homed to the survivor"] = d.pump_until(settled, timeout=60.0)
+    checks["failover was observable while pending"] = t["max_pending"] > 0
+    for cl in clients:
+        first_seen = list(dict.fromkeys(mine(cl)))  # the chaos link dups frames
+        checks[f"{cl.account} chat replayed complete and in order"] = (
+            first_seen == [f"after-{cl.account}-{i}" for i in range(after_chats)])
+    checks["frames were actually parked"] = proxy.parking.parked_total > 0
+    checks["nf_failover_dropped_total == 0"] = proxy.parking.dropped_total == 0
+    k2 = game2.kernel
+    for cl in clients:
+        s2 = d.session(game2, cl.account)
+        got = None if s2 is None else {p: k2.get_property(s2.guid, p)
+                                       for p in ("Name", "Level", "Gold")}
+        checks[f"{cl.account} state recovered on the survivor"] = got == pre[cl.account]
+        checks[f"{cl.account} rebound to the survivor"] = (
+            s2 is not None
+            and int(k2.get_property(s2.guid, "GameID")) == game2.config.server_id)
+    new = [e for e in world.failover.completed[done0:] if tuple(e["selfid"]) in selfids]
+    # the world also re-homes a player that switched away from the dead
+    # game earlier (a ghost: the origin never sends an offline notice for
+    # a switched player, so its bind info stays; the JAX package does the
+    # same, ROADMAP.md section 3)
+    ghosts = len(world.failover.completed) - done0 - len(new)
+    bases = sorted({e["basis"] for e in new})
+    checks["recovery basis was the WAL suffix"] = len(new) == n and bases == ["wal"]
+    reg = world.telemetry.registry
+    checks["failover counters balanced"] = (
+        reg.value("nf_failover_initiated_total") == reg.value("nf_failover_completed_total")
+        >= n + ghosts)
+    checks["clients got the REHOMING notice"] = all(
+        any(int(x.code) == int(P.defines.SwitchNoticeCode.REHOMING) for x in cl.switch_notices)
+        for cl in clients)
+    checks["zero session drops"] = (all(cl.entered for cl in clients)
+                                    and proxy.parking.dropped_disconnect == 0)
+
+    def fo_settled():
+        fo = c.master.servers_status().get("failover", {})
+        return bool(fo) and all(v.get("pending") == 0 for v in fo.values() if "pending" in v)
+
+    checks["master /json failover block"] = d.pump_until(fo_settled, timeout=10.0)
+    page = json.loads(http_get(c, c.master.http.port, "/json", d._stir))
+    checks["/json serves the failover block over HTTP"] = "failover" in page
+    info = {"sessions": n, "blip_ms": None if t["rehomed"] is None
+            else (t["rehomed"] - t_kill) * 1e3,
+            "parked_frames": proxy.parking.parked_total, "bases": bases,
+            "max_pending": t["max_pending"], "ghost_rehomes": ghosts}
+    return checks, info
+
+
+def chaos_plan(P, seed: int, partition=(200, 400), dial_refusals: int = 0):
+    """scripts/chaos_smoke.py's fault plan: refusals, drops and dups on the
+    game's world link, a refusal budget with drops, dups and delays on
+    the proxy's world link, dups, corruption and truncation on the proxy's
+    game links, and a timed both-way login-master partition (``partition``
+    in polls of that link).  ``dial_refusals`` adds a refusal budget to the
+    game's world link and the proxy's game links, for a plan applied to a
+    running cluster (whose live links dial nothing until a revive)."""
+    ch = P.chaos
+    return ch.FaultPlan(seed=seed, links={
+        "game6.world": ch.LinkFaults(refuse=0.25, drop=0.05, dup=0.05,
+                                     refuse_first=dial_refusals),
+        "proxy5.world": ch.LinkFaults(refuse_first=2, drop=0.05, dup=0.1, delay=0.1,
+                                      delay_polls=5),
+        "proxy5.games": ch.LinkFaults(dup=0.1, corrupt=0.05, truncate=0.05,
+                                      refuse_first=dial_refusals),
+        "login4.master": ch.LinkFaults(partitions=((partition[0], partition[1], "both"),)),
+    })
+
+
+def lease_of(cluster, role: str, sid: int):
+    for e in cluster.master.servers_status()["servers"].get(role, []):
+        if e["server_id"] == sid:
+            return e["lease"]
+    return None
+
+
+def drive_control(world, ticks: int) -> None:
+    """Tick a world that serves no role to ``ticks`` in GameRole.execute's
+    per-tick module order."""
+    pm, k = world.pm, world.kernel
+    while k.tick_count < ticks:
+        for m in pm.modules.values():
+            if m is not k:
+                m.execute()
+        k.execute()
+        k.tick()
+        pm.frame += 1
+
+
+def kill_revive(d, name: str, ckpt, world, *, hard: bool, extra_ticks: int = EXTRA_TICKS,
+                timeout: float = 60.0, on_down=None, on_revived=None):
+    """scripts/chaos_smoke.run's kill and revive of the game role ``name``
+    (its checkpoint in ``ckpt``): wait for the checkpoint, kill it, watch
+    the master's lease turn DOWN (then ``on_down()``), revive it with
+    ``resume=True`` over ``world`` (then ``on_revived(role)``, before it
+    ticks), watch the lease turn UP with the cluster wired, and let it
+    tick ``extra_ticks``.  Returns ``(revived role, checks, info)``."""
+    import pathlib
+
+    c = d.c
+    sid = c.role_by_name(name).config.server_id
+    checks: dict = {}
+    checks["checkpoint written"] = d.pump_until(
+        lambda: (pathlib.Path(ckpt) / "meta.json").exists(), timeout)
+    t0 = time.perf_counter()
+    c.kill_role(name, hard=hard)
+    checks["master marks game DOWN"] = d.pump_until(
+        lambda: lease_of(c, "game", sid) == "DOWN", timeout)
+    t_down = time.perf_counter() - t0
+    if on_down is not None:
+        on_down()
+    t1 = time.perf_counter()
+    revived = c.revive_role(name, world=world, resume=True)
+    t_revive = time.perf_counter() - t1
+    if on_revived is not None:
+        on_revived(revived)
+    if d.lockstep:
+        d.hold()
+    checks["resume restored checkpoint"] = (
+        revived.telemetry.registry.value("nf_recoveries_total") == 1)
+    checks["master marks game UP"] = d.pump_until(
+        lambda: lease_of(c, "game", sid) == "UP" and c.wired(), timeout)
+    target = revived.kernel.tick_count + extra_ticks
+    checks["revived world ticking"] = d.pump_until(
+        lambda: revived.kernel.tick_count >= target, timeout)
+    return revived, checks, {"down_s": t_down, "revive_s": t_revive,
+                             "resumed_tick": target - extra_ticks}
+
+
+def banks_equal(P, a_state, b_flat) -> bool:
+    """The revived world's NPC banks, tick and rng against a control's
+    (``b_flat``: a ``_flatten_state`` dict, from either package)."""
+    a = P.checkpoint._flatten_state(a_state)
+    keys = [key for key in b_flat if key.startswith("c/NPC/")]
+    return (bool(keys) and int(a["tick"]) == int(b_flat["tick"])
+            and np.array_equal(np.asarray(a["rng"]), np.asarray(b_flat["rng"]))
+            and all(np.array_equal(np.asarray(a[key]), np.asarray(b_flat[key])) for key in keys))
+
+
+def chaos_counters(d, revived) -> tuple:
+    """chaos_smoke's counter checks, in-process and over real ``/metrics``
+    scrapes of the master, the revived game and the proxy.  Returns
+    ``(checks, the revived game's nf_chaos_faults_total lines)``."""
+    c = d.c
+    checks = {"faults injected": c.chaos.total() > 0}
+    checks["retries counted"] = sum(
+        sum(p.retries_total.values()) for r in c.roles for p in r.clients.values()) > 0
+    checks["lease expiry counted"] = c.master.telemetry.registry.value(
+        "nf_lease_expirations_total", role="game") >= 1
+    checks["partition healed"] = (c.chaos.total("partition_out") > 0
+                                  and lease_of(c, "login", 4) == "UP")
+
+    def lines(port):
+        return http_get(c, port, "/metrics", d._stir).decode().splitlines()
+
+    master = lines(c.master.http.port)
+    checks["/metrics lease counters"] = any(
+        ln.startswith('nf_lease_expirations_total{role="game"}') and float(ln.split()[-1]) >= 1
+        for ln in master)
+    game = lines(revived.serve_metrics(0).port)
+    chaos = [ln for ln in game if ln.startswith("nf_chaos_faults_total{")]
+    checks["/metrics chaos counters"] = any(float(ln.split()[-1]) > 0 for ln in chaos)
+    checks["/metrics recovery counter"] = any(
+        ln.startswith("nf_recoveries_total ") and float(ln.split()[-1]) == 1 for ln in game)
+    proxy = lines(c.proxy.serve_metrics(0).port)
+    checks["/metrics retry counters"] = any(
+        ln.startswith("nf_reconnects_total{") and float(ln.split()[-1]) > 0 for ln in proxy)
+    return checks, chaos
+
+
+def http_get(cluster, port: int, path: str, extra=None) -> bytes:
+    """GET ``path`` from an HttpServer of the cluster while a thread pumps
+    the cluster (and ``extra``) for it."""
+    import threading
+    import urllib.request
+
+    stop = threading.Event()
+
+    def pump():
+        while not stop.is_set():
+            cluster.execute()
+            if extra is not None:
+                extra()
+            time.sleep(0.002)
+
+    th = threading.Thread(target=pump, daemon=True)
+    th.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return r.read()
+    finally:
+        stop.set()
+        th.join(timeout=30)
+
+
+class FrameTimer:
+    """Wall time of each frame (an ``execute`` pass that ticked) of the
+    game roles it wraps, in ms by role name."""
+
+    def __init__(self) -> None:
+        self.ms: dict = {}
+
+    def wrap(self, role) -> None:
+        inner, k = role.execute, role.kernel
+        ms = self.ms.setdefault(role.config.name, [])
+
+        def execute(now=None):
+            t0, tick0 = time.perf_counter(), k.tick_count
+            inner(now)
+            if k.tick_count != tick0:
+                ms.append((time.perf_counter() - t0) * 1e3)
+
+        role.execute = execute
+
+    def take(self) -> dict:
+        """Each role's frame count, p50 and p99 since the last take."""
+        out = {name: {"frames": len(v), "p50_ms": pct(v, 50), "p99_ms": pct(v, 99)}
+               for name, v in self.ms.items() if v}
+        for v in self.ms.values():
+            v.clear()
+        return out
+
+
+class LaunchWindow:
+    """The fold launches a window of frames must make: each world's ticks
+    in the window, plus ``WARMUP_RUNS`` eager runs of a step for each
+    capture its cost book logged in the window (a re-capture's warm-up
+    launches the fold too).  ``drop`` books a killed world's share and
+    lets go of it."""
+
+    def __init__(self) -> None:
+        self.live: dict = {}
+        self.booked = 0
+
+    def add(self, kernel) -> None:
+        self.live[id(kernel)] = (kernel, kernel.tick_count, kernel.costbook._seq)
+
+    @staticmethod
+    def _share(kernel, tick0: int, seq0: int) -> int:
+        caps = sum(1 for r in kernel.costbook.compile_log
+                   if r["seq"] >= seq0 and r["entry"] == "kernel.step")
+        return kernel.tick_count - tick0 + WARMUP_RUNS * caps
+
+    def drop(self, kernel) -> None:
+        k, tick0, seq0 = self.live.pop(id(kernel))
+        self.booked += self._share(k, tick0, seq0)
+
+    def expected(self) -> int:
+        return self.booked + sum(self._share(*v) for v in self.live.values())
+
+
+def lease_expiries(c) -> dict:
+    """Every lease expiry the master and the world counted, by role."""
+    out = {}
+    for where, role in (("master", c.master), ("world", c.world)):
+        reg = role.telemetry.registry
+        for r in ("world", "login", "proxy", "game"):
+            v = reg.value("nf_lease_expirations_total", role=r)
+            if v:
+                out[f"{r}_at_{where}"] = v
+    return out
+
+
+def cluster_memory() -> dict:
+    free()
+    if DEV != "cuda":
+        return {"allocated": 0, "reserved": 0}
+    return {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved()}
+
+
+def state_bytes(state) -> int:
+    return sum(x.numel() * x.element_size() for x in tree.flatten(state)[0]
+               if isinstance(x, torch.Tensor))
+
+
+def recaptures(kernel, seq0: int) -> list:
+    return [{"entry": r["entry"], "seq": r["seq"], "cause": r.get("cause")}
+            for r in kernel.costbook.compile_log if r["seq"] >= seq0]
+
+
+def lockstep_run(device: str) -> dict:
+    """The scripted cluster run at LOCKSTEP_N NPCs and LOCKSTEP_CLIENTS
+    clients (two games on ``device``, radius 8, batched serving), in
+    lockstep: logins one at a time with two frames after each, a seeded
+    move a client with a frame after each, a chat round, a skill, a bag
+    record row, a switch from Game1 to Game2, twenty frames, and a final
+    chat barrier.  Returns each game's last ``state_digest`` and each
+    client's canonical log and mirror."""
+    P = cluster_package()
+    worlds = {n: pinned_world(LOCKSTEP_N, 64, device, GUID_BASE[n]) for n in ("Game1", "Game2")}
+    for w in worlds.values():
+        w.kernel.enable_digest()
+    c = P.roles.LocalCluster(backend="auto", n_games=2, device=device, game_kwargs=CLUSTER_KW,
+                             game_kwargs_by_name={n: {"world": w} for n, w in worlds.items()})
+    del worlds
+    try:
+        d = ClusterDriver(P, c, timeout=120.0, lockstep=True)
+        c.start(timeout=120.0)
+        g1, g2 = c.games
+        gid = {6: g1, 16: g2}
+        clients = []
+        for i in range(LOCKSTEP_CLIENTS):
+            sid = 6 if i % 2 == 0 else 16
+            d.login_all([(f"l{i}", f"L{i}", sid)])
+            clients.append(d.clients[f"l{i}"])
+            d.tick(2)
+        rng = np.random.default_rng(11)
+        for i, cl in enumerate(clients):
+            x, y = (float(v) for v in rng.uniform(1.0, 7.0, 2))
+            cl.move_to(x, y)
+            game = gid[6 if i % 2 == 0 else 16]
+            d.wait(lambda cl=cl, game=game, x=x: abs(
+                game.kernel.get_property(d.guid(cl), "Position")[0] - x) < 1e-4,
+                f"{cl.account}'s move landed")
+            d.tick(1)
+        for cl in clients:
+            n0 = len(cl.chat_log)
+            cl.chat(f"hi from {cl.account}")
+            d.wait(lambda cl=cl, n0=n0: any(t == f"hi from {cl.account}"
+                                            for _w, t in cl.chat_log[n0:]), "a chat echo")
+        d.tick(1)
+        a, b = clients[0], clients[2]
+        a.use_skill(b.player_guid)
+        d.wait(lambda: b.skills, "the skill multicast")
+        d.tick(1)
+        k1 = g1.kernel
+        k1.state, row = k1.store.record_add_row(k1.state, d.guid(a), "BagItemList",
+                                                {"ConfigID": "potion_small", "ItemCount": 2})
+        d.wait(lambda: a.objects[d.key(a)].records.get("BagItemList", {}).get((row, 1)) == 2,
+               "the bag row")
+        d.tick(1)
+        mover = clients[4]
+        g_old = d.guid(mover)
+        mover.switch_server(16)
+        d.wait(lambda: d.session(g2, mover.account) is not None
+               and g_old not in k1.store.guid_map, "the switch to Game2")
+        d.tick(20)
+        for cl in clients:
+            cl.chat(f"end {cl.account}")
+        d.wait(lambda: all(any(t == f"end {cl.account}" for _w, t in cl.chat_log)
+                           for cl in clients), "the end barrier")
+        d.pump(40)
+        return {"digests": {g.config.name: g.kernel.last_counters["state_digest"] & 0xFFFFFFFF
+                            for g in (g1, g2)},
+                "ticks": {g.config.name: g.kernel.tick_count for g in (g1, g2)},
+                "logs": {a: canonical_log(P, x.log) for a, x in d.clients.items()},
+                "mirrors": {a: mirror_view(x) for a, x in d.clients.items()}}
+    finally:
+        c.shut()
+
+
+def phase_cluster(card: str):
+    """(j): the five-role cluster on the card (run after (i)).
+
+    ``LocalCluster(backend="auto", http_port=0, n_games=2, device="cuda")``
+    over two worlds of ``build_benchmark_world(100_000)``'s recipe (combat
+    on, engine 1, sort, no skin; 128 Player rows; each game's guids pinned
+    at its own base), radius 8 and batched serving, every frame's tick a
+    CUDA graph; per-game WAL and checkpoint dirs over one store.  Every
+    other world the phase needs is built before the cluster starts: a
+    build inside the pump would stall every lease.  The lease cadence
+    (``KEEPALIVE_S``, ``LEASE_SUSPECT_S``, ``LEASE_DOWN_S``) is passed
+    explicitly and sized above the longest pump round, which a world's
+    checkpoint, a re-capture or a revive's load can stretch to seconds;
+    any lease that expires outside the two kills fails the phase.
+
+    1. 64 clients log in through login, world, proxy and game (32 a game);
+       the master's ``/json`` lists all five roles; login latency.
+    2. tests/test_roles.py's flows on Game1 (``pair_flows``); the round
+       trip of 64 chats; each game's frame p50/p99.
+    3. 8 players switch from Game1 to Game2 (``switch_server``): Level,
+       Gold and Name arrive, Game1 frees its copies, Game2 serves their
+       chat; switch latency.
+    4. The failover of scripts/failover_smoke.run at this width
+       (``failover_kill``: 24 sessions, WAL basis); the blip, Game2's
+       re-captures and their causes.
+    5. Chaos and revive as scripts/chaos_smoke.run: Game1 revived fresh
+       and client-free, the seeded plan, a checkpoint, a hard kill, DOWN,
+       a revive into a fresh world (its bucket boost, host state no
+       checkpoint carries, set to the killed world's), UP; the NPC banks,
+       tick and rng equal a control world ticked as far; the chaos,
+       retry, lease and recovery counters over real ``/metrics``; device
+       memory around the kill and two revives.
+    6. Login and chat again under ``NF_PALLAS=2``: ``fused_neighborhood``
+       launches once a tick.  In steps 1-5 ``combat_fold`` launched once
+       a tick plus each re-capture's warm-ups, on every world.
+    7. The lockstep script (``lockstep_run``) at 4,096 NPCs and 8 clients
+       on the card and on the CPU: equal digests and client logs."""
+    import pathlib
+
+    from noahgameframe_tpu_torch.replay.replayer import make_offline_role
+
+    P = cluster_package()
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="nf_cluster_"))
+    out = {"phase": "cluster", "card": card, "entities": CLUSTER_N, "clients": CLUSTER_CLIENTS,
+           "keepalive_s": KEEPALIVE_S, "lease_suspect_s": LEASE_SUSPECT_S,
+           "lease_down_s": LEASE_DOWN_S}
+    c = None
+    try:
+        t0 = time.perf_counter()
+        worlds = {k: pinned_world(CLUSTER_N, CLUSTER_PLAYERS, DEV, GUID_BASE[g])
+                  for k, g in (("Game1", "Game1"), ("Game2", "Game2"), ("fresh", "Game1"),
+                               ("resume", "Game1"), ("resume2", "Game1"), ("control", "Game1"))}
+        out["world_build_s"] = time.perf_counter() - t0
+        world_bytes = state_bytes(worlds["Game1"].kernel.state)
+        kv = P.persist.MemoryKV()
+        per_game = {n: {"data_agent": P.persist.PlayerDataAgent(kv), "persist_store": kv,
+                        "persist_wal_dir": root / f"wal{i}", "checkpoint_dir": root / f"ckpt{i}"}
+                    for i, n in ((1, "Game1"), (2, "Game2"))}
+        for n in per_game:
+            per_game[n]["world"] = worlds.pop(n)
+        c = P.roles.LocalCluster(
+            backend="auto", http_port=0, n_games=2, device=DEV, keepalive_seconds=KEEPALIVE_S,
+            lease_suspect_seconds=LEASE_SUSPECT_S, lease_down_seconds=LEASE_DOWN_S,
+            game_kwargs={**CLUSTER_KW, "autosave_seconds": 3600.0, "checkpoint_seconds": 3600.0,
+                         "persist_drain_timeout": 0.3},
+            game_kwargs_by_name=per_game, world_kwargs={"recover_store": kv})
+        for n in per_game:
+            per_game[n].pop("world")  # revive_role must not reuse a killed world
+        timer = FrameTimer()
+        for g in c.games:
+            timer.wrap(g)
+        c.start(timeout=120.0)
+        out["frames_start"] = timer.take()  # the first frames capture the tick
+        out["backends"] = {r.config.name: type(r.server.transport).__name__ for r in c.roles}
+        d = ClusterDriver(P, c, timeout=120.0)
+        game1, game2 = c.games
+        window = LaunchWindow()
+        for g in (game1, game2):
+            window.add(g.kernel)
+        seq2 = game2.kernel.costbook._seq
+        sck.reset_launch_counts()
+
+        # 1. 64 clients through the whole chain
+        specs = [(f"p{i:02d}", f"P{i:02d}", 6 if i < CLUSTER_CLIENTS // 2 else 16)
+                 for i in range(CLUSTER_CLIENTS)]
+        lat = d.login_all(specs, timeout=600.0)
+        status = json.loads(http_get(c, c.master.http.port, "/json", d._stir))
+        roles = sorted(status["servers"])
+        check(roles == ["game", "login", "proxy", "world"] and status["master"]["server_id"] == 1
+              and len(status["servers"]["game"]) == 2, f"/json lists all five roles ({roles})")
+        check(len(game1.sessions) >= CLUSTER_CLIENTS // 2
+              and len(game2.sessions) >= CLUSTER_CLIENTS // 2, "every client has a session")
+        out["login_s"] = {"p50": pct(lat, 50), "p99": pct(lat, 99), "max": max(lat)}
+        cl = [d.clients[s[0]] for s in specs]
+
+        # 2. the flows of tests/test_roles.py, on the card
+        pair_flows(d, cl[0], cl[1], game1)
+        sent_at, rtt = {}, {}
+        for x in cl:
+            sent_at[x.account] = time.perf_counter()
+            x.chat(f"rtt {x.account}")
+
+        def echoed():
+            now = time.perf_counter()
+            for x in cl:
+                if x.account not in rtt and any(t == f"rtt {x.account}" for _w, t in x.chat_log):
+                    rtt[x.account] = now - sent_at[x.account]
+            return len(rtt) == len(cl)
+
+        d.wait(echoed, "64 chat echoes")
+        out["chat_rtt_ms"] = {"n": len(rtt), "p50": pct(list(rtt.values()), 50) * 1e3,
+                              "p99": pct(list(rtt.values()), 99) * 1e3}
+        out["flows"] = ["see each other", "move", "chat", "skill -10 HP", "bag row"]
+        out["frames_steps_1_2"] = timer.take()
+
+        # 3. eight switches from Game1 to Game2
+        movers = cl[2:2 + SWITCHES]
+        k1, k2 = game1.kernel, game2.kernel
+        props, old, t_sw, t_done = {}, {}, {}, {}
+        for i, x in enumerate(movers):
+            g = d.guid(x)
+            k1.set_property(g, "Level", 5 + i)
+            k1.set_property(g, "Gold", 100 + 7 * i)
+            props[x.account] = (5 + i, 100 + 7 * i, x.account.upper())
+            old[x.account] = g
+        for x in movers:
+            t_sw[x.account] = time.perf_counter()
+            x.switch_server(16)
+
+        def switched():
+            now = time.perf_counter()
+            for x in movers:
+                if x.account not in t_done and d.session(game2, x.account) is not None:
+                    t_done[x.account] = now
+            return len(t_done) == len(movers) and all(
+                old[a] not in k1.store.guid_map and d.session(game1, a) is None for a in old)
+
+        d.wait(switched, "8 switches landed and Game1 freed its copies")
+        for x in movers:
+            g = d.session(game2, x.account).guid
+            got = (int(k2.get_property(g, "Level")), int(k2.get_property(g, "Gold")),
+                   str(k2.get_property(g, "Name")))
+            check(got == props[x.account], f"{x.account}'s Level, Gold, Name arrived ({got})")
+        chats0 = game2.server.counters.in_msgs.get(int(P.defines.MsgID.REQ_CHAT), 0)
+        for x in movers:
+            x.chat(f"moved {x.account}")
+        d.wait(lambda: all(any(t == f"moved {x.account}" for _w, t in x.chat_log)
+                           for x in movers), "chat after the switch")
+        check(game2.server.counters.in_msgs.get(int(P.defines.MsgID.REQ_CHAT), 0) - chats0
+              >= SWITCHES, "Game2 served the switched players' chat")
+        out["switch_ms"] = {"n": len(t_done), "p50": pct(
+            [(t_done[a] - t_sw[a]) * 1e3 for a in t_done], 50)}
+        # the fault-free part ends here: no lease may have expired, and
+        # every lease the master keeps is UP
+        leases = {e["name"]: e["lease"] for es in c.master.servers_status()["servers"].values()
+                  for e in es}
+        check(not lease_expiries(c) and set(leases.values()) == {"UP"},
+              f"no lease expired in the fault-free part ({lease_expiries(c)}, {leases})")
+        out["max_pump_round_s_fault_free"] = d.max_round_s
+
+        # 4. the failover, at this width
+        c.apply_chaos(failover_plan(P, SEED + 7))
+        orphans = [x for x in cl[:CLUSTER_CLIENTS // 2] if x not in movers]
+        w1 = game1.kernel
+        checks, info = failover_kill(d, game1, game2, orphans, kv, root / "wal1")
+        failed = [k for k, ok in checks.items() if not ok]
+        check(not failed, f"failover: {failed}")
+        window.drop(w1)  # ticks stopped at the kill
+        del game1, w1, k1
+        check(set(lease_expiries(c)) <= {"game_at_master"},
+              f"only the killed game's lease expired ({lease_expiries(c)})")
+        out["failover"] = {**info, "checks": len(checks),
+                           "game2_recaptures": recaptures(k2, seq2)}
+        out["frames_steps_3_4"] = timer.take()
+
+        # 5. chaos and revive: Game1 revived fresh and client-free; the
+        # clients stay on Game2 unread (the plan corrupts frames on their
+        # way to the proxy) until step 6 closes them
+        c.chaos.heal()
+        paused, d.live = d.live, []
+        fresh = worlds.pop("fresh")
+        g1 = c.revive_role("Game1", world=fresh, resume=False)
+        del fresh
+        timer.wrap(g1)
+        window.add(g1.kernel)
+        d.wait(lambda: lease_of(c, "game", 6) == "UP" and c.wired(), "the fresh Game1 is UP")
+        c.apply_chaos(chaos_plan(P, SEED, partition=(20, 120), dial_refusals=2))
+        d.tick(10)
+        g1.checkpoint_now()
+        boost = g1.game_world.combat._bucket_boost
+        resume = worlds.pop("resume")
+        resume.combat._bucket_boost = boost
+        mem = {"before_kill": cluster_memory()}
+        hold = {"kernel": g1.kernel}
+        del g1
+
+        def on_down():
+            window.drop(hold.pop("kernel"))
+            mem["after_kill"] = cluster_memory()
+
+        def on_revived(role):
+            window.add(role.kernel)
+            timer.wrap(role)
+
+        revived, checks, info = kill_revive(d, "Game1", root / "ckpt1", resume, hard=True,
+                                            timeout=120.0, on_down=on_down,
+                                            on_revived=on_revived)
+        del resume
+        mem["after_revive"] = cluster_memory()
+        failed = [k for k, ok in checks.items() if not ok]
+        check(not failed, f"kill and revive: {failed}")
+        control = worlds.pop("control")
+        offline = make_offline_role(control, backend="py", device=DEV)
+        window.add(control.kernel)
+        drive_control(control, revived.kernel.tick_count)
+        check(banks_equal(P, revived.kernel.state, P.checkpoint._flatten_state(
+            control.kernel.state)), "the revived NPC banks, tick and rng equal the control's")
+        window.drop(control.kernel)
+        offline.shut()
+        del offline, control
+        counters, chaos_lines = chaos_counters(d, revived)
+        failed = [k for k, ok in counters.items() if not ok]
+        check(not failed, f"chaos counters: {failed}")
+        out["revive"] = {**info, "boost": boost, "checks": len(checks) + len(counters) + 1,
+                         "chaos_faults": c.chaos.total(), "chaos_samples": len(chaos_lines)}
+        # a second kill and revive grows the card's memory by at most a world
+        revived.checkpoint_now()
+        resume2 = worlds.pop("resume2")
+        resume2.combat._bucket_boost = revived.game_world.combat._bucket_boost
+        window.drop(revived.kernel)
+        c.kill_role("Game1", hard=True)
+        del revived
+        mem["after_second_kill"] = cluster_memory()
+        t1 = time.perf_counter()
+        revived = c.revive_role("Game1", world=resume2, resume=True)
+        out["revive"]["second_revive_s"] = time.perf_counter() - t1
+        del resume2
+        timer.wrap(revived)
+        window.add(revived.kernel)
+        d.wait(lambda: lease_of(c, "game", 6) == "UP" and c.wired(), "the second revive is UP")
+        mem["after_second_revive"] = cluster_memory()
+        grow = mem["after_second_revive"]["allocated"] - mem["after_revive"]["allocated"]
+        check(grow <= world_bytes, f"a second kill and revive grew memory by {grow} bytes "
+              f"(a world holds {world_bytes})")
+        out["memory"] = {**mem, "world_state_bytes": world_bytes, "second_cycle_growth": grow}
+        c.chaos.heal()
+        # under the plan only the killed game and the partitioned login
+        # may have expired
+        out["lease_expirations"] = lease_expiries(c)
+        check(set(out["lease_expirations"]) <= {"game_at_master", "login_at_master"},
+              f"no lease expired but the killed game's and the partitioned login's "
+              f"({out['lease_expirations']})")
+        out["max_pump_round_s"] = d.max_round_s
+        launches = {n: kk.launches for n, kk in sck.KERNELS.items()}
+        expect = window.expected()
+        check(launches["combat_fold"] == expect,
+              f"combat_fold launched once a tick plus warm-ups on every world "
+              f"({launches['combat_fold']} vs {expect})")
+        out["launches"] = {**launches, "expected_combat_fold": expect}
+        out["frames_step_5"] = timer.take()
+
+        # 6. login and chat again under NF_PALLAS=2
+        for x in paused:
+            x.close()
+        os.environ["NF_PALLAS"] = "2"
+        try:
+            window = LaunchWindow()
+            for g in c.games:
+                window.add(g.kernel)
+            sck.reset_launch_counts()
+            specs2 = [(f"q{i}", f"Q{i}", g.config.server_id)
+                      for i, g in enumerate(c.games * 4)]
+            d.login_all(specs2, timeout=300.0)
+            qs = [d.clients[s[0]] for s in specs2]
+            for x in qs:
+                x.chat(f"fused {x.account}")
+            d.wait(lambda: all(any(t == f"fused {x.account}" for _w, t in x.chat_log)
+                               for x in qs), "chat under engine 2")
+            fl = {n: kk.launches for n, kk in sck.KERNELS.items()}
+            expect2 = window.expected()
+            check(fl["fused_neighborhood"] == expect2 and fl["combat_fold"] == 0,
+                  f"fused_neighborhood launched once a tick plus warm-ups ({fl} vs {expect2})")
+            out["engine2"] = {"launches": fl, "expected": expect2, "clients": len(qs)}
+        finally:
+            os.environ.pop("NF_PALLAS")
+        c.shut()
+        c = None
+        free()
+
+        # 7. the card against the CPU, in lockstep
+        t7 = time.perf_counter()
+        on_card, on_cpu = lockstep_run(DEV), lockstep_run("cpu")
+        check(on_card["digests"] == on_cpu["digests"] and on_card["ticks"] == on_cpu["ticks"],
+              f"cuda and cpu digests ({on_card['digests']} vs {on_cpu['digests']})")
+        check(on_card["logs"] == on_cpu["logs"], "cuda and cpu canonical client logs")
+        check(on_card["mirrors"] == on_cpu["mirrors"], "cuda and cpu client mirrors")
+        out["lockstep"] = {"entities": LOCKSTEP_N, "clients": LOCKSTEP_CLIENTS,
+                           "digests": on_card["digests"], "ticks": on_card["ticks"],
+                           "messages": sum(len(v) for lg in on_card["logs"].values()
+                                           for v in lg.values()),
+                           "seconds": time.perf_counter() - t7}
+    finally:
+        if c is not None:
+            c.shut()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    free()
+    return {"combat_fold": out["launches"]["combat_fold"],
+            "fused_neighborhood": out["engine2"]["launches"]["fused_neighborhood"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2116,6 +3162,8 @@ def main() -> int:
     phase_aoi_interest(card)
     free()
     served_launches = phase_served(card)
+    free()
+    cluster_launches = phase_cluster(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
@@ -2134,6 +3182,7 @@ def main() -> int:
          "resumed_launches": persist_launches[name],
          "host_layer_launches": host_launches[name],
          "served_launches": served_launches[name],
+         "cluster_launches": cluster_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

@@ -72,6 +72,8 @@ __all__ = ["GameRole", "Session", "guid_ident", "ROW_TARGET_SVRID"]
 
 class GameRole(GameHandlersMixin, GameSwitchMixin, GameSyncMixin, GameInterestMixin,
                ServerRole):
+    server_type = int(ServerType.GAME)
+
     def __init__(
         self,
         config: RoleConfig,

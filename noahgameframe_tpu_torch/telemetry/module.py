@@ -1,8 +1,7 @@
 """TelemetryModule: one registry per world, every world source wired in.
 
-Counterpart of ``noahgameframe_tpu/telemetry/module.py`` without the
-chaos source (``add_chaos_source``), which comes with the cluster roles.
-Sources are sampled lazily at scrape time:
+Counterpart of ``noahgameframe_tpu/telemetry/module.py``.  Sources are
+sampled lazily at scrape time:
 
 - frame latency: :class:`~noahgameframe_tpu_torch.utils.metrics.TickMetrics`
   observing into ``nf_frame_seconds``, plus the quantile gauges
@@ -22,7 +21,9 @@ Sources are sampled lazily at scrape time:
   NetServerModule and NetClientModule pool (:meth:`add_net_source`), the
   proxy's relay counters, ``nf_reconnects_total`` per pool
   (:meth:`add_pool_source`) and the ``nf_role_info`` identity gauge
-  (:meth:`attach_role`).
+  (:meth:`attach_role`);
+- the injected faults of a cluster's ChaosDirector (net/chaos.py),
+  ``nf_chaos_faults_total{link,kind}`` (:meth:`add_chaos_source`).
 
 :meth:`mount` routes ``/metrics`` and ``/costbook`` on a net/http.py
 HttpServer; ServerRole.serve_metrics() starts a dedicated one.
@@ -60,6 +61,7 @@ class TelemetryModule(Module):
         self.costbook = CostBook()
         self._net_sources: Dict[str, object] = {}
         self._pool_sources: Dict[str, object] = {}  # link -> NetClientModule
+        self._chaos_sources: list = []  # (link prefix, ChaosDirector)
         self._kernel_attached = False
         self._role_attached = False
         reg = self.registry
@@ -78,6 +80,10 @@ class TelemetryModule(Module):
         reg.register_callback(
             "nf_relay_seconds_total", lambda: self._relay_samples(1),
             kind="counter", help="cumulative proxy forward latency per link/opcode",
+        )
+        reg.register_callback(
+            "nf_chaos_faults_total", self._chaos_samples, kind="counter",
+            help="injected faults per link and kind (net/chaos.py)",
         )
         reg.register_callback(
             "nf_reconnects_total", self._pool_samples, kind="counter",
@@ -141,6 +147,19 @@ class TelemetryModule(Module):
         for link, pool in sorted(self._pool_sources.items()):
             for sid in sorted(pool.retries_total):
                 yield ({"link": link, "server_id": str(sid)}, pool.retries_total[sid])
+
+    def add_chaos_source(self, director, prefix: str = "") -> None:
+        """Register a ChaosDirector (net/chaos.py); only links starting
+        with `prefix` are exposed (one role sees its own links)."""
+        self._chaos_sources.append((str(prefix), director))
+
+    def _chaos_samples(self) -> Iterable[Tuple[dict, float]]:
+        for prefix, director in self._chaos_sources:
+            for link in sorted(director.counts):
+                if prefix and not link.startswith(prefix):
+                    continue
+                for kind, v in sorted(director.counts[link].items()):
+                    yield ({"link": link, "kind": kind}, v)
 
     def _net_samples(self, which: int) -> Iterable[Tuple[dict, float]]:
         for link, c in sorted(self._net_sources.items()):
