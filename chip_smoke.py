@@ -121,7 +121,34 @@ non-zero without printing a result:
    longest pump round and every lease expiry; and a lockstep script at
    4,096 NPCs and 8 clients on the card and on the CPU with equal digests
    and client logs (``phase_cluster``).  The kernel table gains each
-   kernel's launches on this path (``cluster_launches``).
+   kernel's launches on this path (``cluster_launches``);
+(k) the gameplay middleware (run after (i)): the served recipe at
+   100,000 NPCs built as ``GameWorld(WorldConfig(middleware=True))``
+   (player capacity 512), under a game role (radius 8, batched serving,
+   a graph tick) with 500 sessions; each avatar's script goes through the
+   role's dispatch as client messages, a step a frame: shop buys of a
+   potion, a token, an equip, a gem and a hero card, using the potion and
+   the token, socketing the gem into the equip, wearing and taking it off,
+   the card's hero set to fight, a kill task accepted (each avatar's
+   ``slash`` kills an NPC; the kill event credits whichever attacker the
+   tick stamps) and its award drawn, a team of five and one of 10 guilds,
+   an SLG farm bought, upgraded (1 s) and collected; two timed buffs, a
+   mail with an item (sent and drawn) and a rank update go through the
+   host API, as neither package has client messages for them.  Each
+   avatar's resulting state is checked.  Printed: frame p50/p99 with the
+   stage waterfall beside (i)'s batched frame, the handlers' ms, the
+   buff phase's ms by CUDA events at 100k and on a 1M middleware world
+   (with its least bytes), the 1M graph tick with the stack against
+   phase 3's tick without it, ``TaskModule._on_kills``' host ms a frame, the
+   re-captures and their causes, and each fold's launches (ticks served
+   plus warm-ups).  Held: a checkpoint of the 100k middleware world loads
+   into a fresh one with equal banks, module state and next 30 digests;
+   the script under ``NF_PALLAS=2`` (100 sessions) launches
+   ``fused_neighborhood``; at
+   4,096 NPCs and 32 sessions the card and the CPU send equal streams
+   with equal digests, module state and credited killers.  The kernel
+   table gains each kernel's launches on this path
+   (``middleware_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -147,7 +174,7 @@ import torch
 from noahgameframe_tpu_torch.core import tree
 from noahgameframe_tpu_torch.core.prng import prng_key
 from noahgameframe_tpu_torch.game import world as gw
-from noahgameframe_tpu_torch.game.defines import PropertyGroup
+from noahgameframe_tpu_torch.game.defines import STAT_NAMES, PropertyGroup
 from noahgameframe_tpu_torch.kernel import scene as gsc
 from noahgameframe_tpu_torch.kernel import kernel as km
 from noahgameframe_tpu_torch.ops import stencil as sc
@@ -170,7 +197,14 @@ SEED = 0
 DEV = "cuda"
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t``, the script's
+    seconds when the phase ended."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -722,6 +756,7 @@ def phase_main_path():
     check(graph["digest"] == eager["digest"], "graph and eager digests equal after 90 ticks")
     check(launches["combat_fold"] == 90, "kernel 1 ran once per tick of the main path")
     graph_ticks = tick_times(k, 30, graph=True)
+    MAIN_TICK_MS.append(statistics.median(graph_ticks))
     graph_prof = profile_ticks(k, 10, host_ops=False, graph=True)
     check(graph_prof["device_ms"] > 0, "the profiler recorded the card's activity")
     check(graph_prof["kernel_launches"]["combat_fold"] == 10,
@@ -964,7 +999,8 @@ def rooms_recipe():
     NPC rows, 32 seeded, extent 64, skin 2.0, combat, movement and regen;
     the digest on."""
     w = gw.GameWorld(gw.WorldConfig(npc_capacity=64, player_capacity=8, extent=64.0,
-                                    seed=SEED, verlet_skin=2.0), device=DEV)
+                                    seed=SEED, verlet_skin=2.0, middleware=False),
+                     device=DEV)
     w.start()
     w.scene.create_scene(1, width=64.0)
     w.seed_npcs(32, rng=np.random.default_rng(SEED + 100))
@@ -1784,18 +1820,19 @@ ENGINES = {
 }
 
 
-def served_role(n: int, sessions: int, device: str, *, seat_rng=None, **kw):
+def served_role(n: int, sessions: int, device: str, *, seat_rng=None, world=None, **kw):
     """The bench's served role (``bench.build_served_role``: one live Player
     avatar a session, seated as bench.py seats them, or at random spots
-    when ``seat_rng`` is given), its transport writes hashed and counted:
-    returns (role, sink) with ``sink`` = {"msgs", "bytes", "sha"}."""
+    when ``seat_rng`` is given) over ``world`` (``pinned_world`` unless
+    given), its transport writes hashed and counted: returns (role, sink)
+    with ``sink`` = {"msgs", "bytes", "sha"}."""
     import hashlib
 
     from noahgameframe_tpu_torch import bench
 
-    role, _sent = bench.build_served_role(n, sessions, torch.device(device), seed=SEED,
-                                          interest_radius=SERVED_RADIUS,
-                                          world=pinned_world(n, sessions + 8, device), **kw)
+    role, _sent = bench.build_served_role(
+        n, sessions, torch.device(device), seed=SEED, interest_radius=SERVED_RADIUS,
+        world=world if world is not None else pinned_world(n, sessions + 8, device), **kw)
     if seat_rng is not None:
         ext = role.game_world.config.extent
         for sess in role.sessions.values():
@@ -1974,15 +2011,20 @@ def journal_run(root, device: str):
     return jdir, cdir
 
 
-def pinned_world(n: int, players: int, device: str, guid_base: int = 7_000_000):
+def pinned_world(n: int, players: int, device: str, guid_base: int = 7_000_000, *,
+                 middleware: bool = False, teams: int | None = None):
     """``build_benchmark_world(n)``'s recipe with a Player bank for
     ``players`` and the guid allocator pinned (at ``guid_base``) before the
     NPCs are seeded, so two builds (two devices, two engines) mint the same
-    guids and send the same bytes."""
+    guids and send the same bytes.  ``middleware`` adds the gameplay stack,
+    ``teams`` sizes its Team bank."""
     extent = max(64.0, float(np.sqrt(n / 0.4)))
     w = gw.GameWorld(gw.WorldConfig(
         npc_capacity=1 << int(np.ceil(np.log2(max(n, 64)))), extent=extent, seed=SEED,
-        player_capacity=1 << int(np.ceil(np.log2(max(players, 64))))), device=device)
+        player_capacity=1 << int(np.ceil(np.log2(max(players, 64)))),
+        middleware=middleware), device=device)
+    if teams is not None:
+        w.kernel.store_config.capacities["Team"] = teams  # read when start() builds
     w.start()
     w.kernel.store.guids.pin(guid_base)
     w.scene.create_scene(1, width=extent)
@@ -2006,6 +2048,7 @@ def phase_served(card: str):
     engines = {}
     for name, kw in ENGINES.items():
         engines[name] = served_engine(name, SERVED_N, SERVED_FRAMES, **kw)
+    SERVED_BATCH.update(engines["batch"])
     # the same world and frames under legacy and batch: equal wire streams
     sha = {}
     for name in ("legacy", "batch"):
@@ -3126,6 +3169,446 @@ def phase_cluster(card: str):
             "fused_neighborhood": out["engine2"]["launches"]["fused_neighborhood"]}
 
 
+# -- (k) the gameplay middleware ----------------------------------------------------
+MW_N = SERVED_N  # the served recipe's 100,000 NPCs
+MW_SESSIONS = 500
+MW_PLAYERS = 512  # the Player bank
+MW_TEAMS = 128  # Team objects: 500 players in teams of five need 100
+MW_WAIT = 34  # frames after the scripted steps: the 1 s upgrades and buffs run out
+MW_CKPT_TICKS = 30
+MW_PARITY_N, MW_PARITY_SESSIONS = 4096, 32
+MW_ENGINE2_SESSIONS = 100  # the NF_PALLAS=2 rerun of the script
+SERVED_BATCH: dict = {}  # phase (i)'s batched engine, printed beside (k)
+MAIN_TICK_MS: list = []  # phase 3's median graph tick at 1M
+
+
+def mw_catalogue(w) -> None:
+    """Item, shop, building, skill, task and buff definitions of the
+    middleware script (config, not checkpointed: every world defines them)."""
+    from noahgameframe_tpu_torch.game import EShopType, ItemSubType, ItemType, TaskDef
+
+    e = w.kernel.elements
+    e.add_element("Item", "potion", {"ItemType": int(ItemType.ITEM),
+                                     "ItemSubType": int(ItemSubType.HP), "AwardValue": 20})
+    e.add_element("Item", "token", {"ItemType": int(ItemType.TOKEN),
+                                    "ItemSubType": int(ItemSubType.CURRENCY),
+                                    "AwardValue": 100})
+    e.add_element("Item", "blade", {"ItemType": int(ItemType.EQUIP), "ATK_VALUE": 9})
+    e.add_element("Item", "ruby", {"ItemType": int(ItemType.GEM), "ATK_VALUE": 3})
+    e.add_element("Item", "hero_mage", {"ItemType": int(ItemType.CARD), "ATK_VALUE": 4,
+                                        "MAXHP": 10})
+    e.add_element("Skill", "slash", {"DamageValue": 1000})
+    e.add_element("Building", "farm", {"Type": 3, "UpgradeTime": 1})
+    for item, kind in (("potion", EShopType.GOLD), ("token", EShopType.GOLD),
+                       ("ruby", EShopType.GOLD), ("hero_mage", EShopType.GOLD),
+                       ("blade", EShopType.EQUIP), ("farm", EShopType.BUILDING)):
+        e.add_element("Shop", f"shop_{item}", {"Type": int(kind), "Level": 1, "Gold": 5,
+                                               "ItemID": item})
+    w.tasks.define_task(TaskDef("t_hunt", count=1, award_gold=7))
+    w.buffs.define_buff("swift", 0.5, {"MOVE_SPEED": 50, "ATK_VALUE": 2})
+    w.buffs.define_buff("ward", 1.0, {"DEF_VALUE": 6, "MAXHP": 30})
+    w.slg_building.collect_interval_s = 1.0
+    w.skills.skill_damage = 1000
+
+
+def mw_world(n: int, players: int, device: str):
+    """The served recipe (``pinned_world``) with the middleware, a Team bank
+    for MW_TEAMS teams and its catalogue defined."""
+    w = pinned_world(n, players, device, middleware=True, teams=MW_TEAMS)
+    mw_catalogue(w)
+    return w
+
+
+def mw_role(n: int, sessions: int, device: str, **kw):
+    """``served_role`` (radius 8, batched serving, a graph tick on a card)
+    over ``mw_world(n)``, its ``sessions`` seated at seeded spots, each
+    avatar at Level 1 with 10,000 Gold.  Returns (role, sink, seats,
+    credited): ``seats`` lists (ident, conn, guid, account) in seat order,
+    ``credited`` collects the kills whose killer is a Player."""
+    from noahgameframe_tpu_torch.core.store import HANDLE_ROW_BITS
+    from noahgameframe_tpu_torch.game import GameEvent
+
+    w = mw_world(n, max(sessions + 12, MW_PLAYERS), device)
+    role, sink = served_role(n, sessions, device, seat_rng=np.random.default_rng(11),
+                             world=w, serve_batch=True, **kw)
+    k = role.kernel
+    seats = [(s.ident, s.conn_id, s.guid, s.account) for s in role.sessions.values()]
+    for _ident, _conn, g, _acct in seats:
+        k.set_property(g, "Level", 1)
+        k.set_property(g, "Gold", 10_000)
+    player_ci = k.store.class_index["Player"]
+    credited = []
+
+    def on_kills(cname, mask, params):
+        handles = params["killer"][mask]
+        for h in handles[(handles >= 0) & ((handles >> HANDLE_ROW_BITS) == player_ci)]:
+            credited.append(k.store.guid_of_handle(int(h)))
+
+    k.events.subscribe_batch(int(GameEvent.ON_OBJECT_BE_KILLED), on_kills)
+    return role, sink, seats, credited
+
+
+def mw_steps(w, seats):
+    """The script, one step a frame: a step is ``("wire", make)``, where
+    ``make(i, guid)`` gives session i's client message ``(MsgID, msg)`` or
+    None, all fed through the role's dispatch; ``("host", fn)``, a call of
+    the middleware API for every session (buffs, mail and rank have no
+    client message in either package); or ``("kill", None)``, every avatar
+    casting ``slash`` (SkillModule.use_skill, which stamps the killer) on
+    an NPC that NPC kills then count."""
+    from noahgameframe_tpu_torch.net import wire
+    from noahgameframe_tpu_torch.net import wire_families as fam
+    from noahgameframe_tpu_torch.net.defines import MsgID
+
+    def buy(item):
+        return ("wire", lambda i, g: (MsgID.REQ_BUY_FORM_SHOP, fam.ReqAckBuyObjectFormShop(
+            config_id=f"shop_{item}".encode(), x=float(i % 50), y=float(i // 50))))
+
+    def use(item, target=None):
+        return ("wire", lambda i, g: (MsgID.REQ_ITEM_OBJECT, wire.ReqAckUseItem(
+            item=wire.ItemStruct(item_id=item.encode(), item_count=1), targetid=target)))
+
+    lead = [s[2] for s in seats]
+    zero = wire.Ident(svrid=0, index=0)
+    mails = {}
+
+    def join_team(i):
+        if i % 5 == 0:
+            return None
+        tid = w.team.team_of(lead[(i // 5) * 5]).team_id
+        return MsgID.REQ_JOIN_TEAM, wire.ReqAckJoinTeam(
+            team_id=wire.Ident(svrid=tid.head, index=tid.data))
+
+    return [
+        buy("potion"), buy("token"), buy("blade"), buy("ruby"), buy("hero_mage"),
+        use("potion"),
+        ("host", lambda i, g: (w.buffs.apply_buff(g, "swift"), w.buffs.apply_buff(g, "ward"))),
+        use("token"),
+        ("host", lambda i, g: mails.__setitem__(i, w.mail.send(
+            f"bot{i}", "system", "Supplies", items={"potion": 1}))),
+        ("host", lambda i, g: w.mail.draw(f"bot{i}", mails[i], g)),
+        use("ruby", wire.Ident(svrid=1, index=0)),
+        ("wire", lambda i, g: (MsgID.WEAR_EQUIP, wire.ReqWearEquip(equipid=zero))),
+        use("hero_mage"),
+        ("wire", lambda i, g: (MsgID.REQ_SET_FIGHT_HERO,
+                               wire.ReqSetFightHero(heroid=zero, fight_pos=0))),
+        ("wire", lambda i, g: (MsgID.REQ_ACCEPT_TASK, wire.ReqAcceptTask(task_id=b"t_hunt"))),
+        ("host", lambda i, g: w.rank.update("level", f"bot{i}", 1000 - i)),
+        ("wire", lambda i, g: (MsgID.REQ_CREATE_TEAM, wire.ReqAckCreateTeam())
+         if i % 5 == 0 else None),
+        ("wire", lambda i, g: join_team(i)),
+        ("wire", lambda i, g: (MsgID.REQ_CREATE_GUILD, wire.ReqAckCreateGuild(
+            guild_name=f"G{i}".encode())) if i < 10 else None),
+        ("wire", lambda i, g: None if i < 10 else (MsgID.REQ_JOIN_GUILD, wire.ReqAckJoinGuild(
+            guild_name=f"G{i % 10}".encode()))),
+        buy("farm"),
+        ("wire", lambda i, g: (MsgID.REQ_UP_BUILD_LVL, fam.ReqUpBuildLv(row=0))),
+        ("kill", None),
+        ("wire", lambda i, g: (MsgID.TAKEOFF_EQUIP, wire.TakeOffEquip(equipid=zero))),
+    ] + [None] * MW_WAIT + [
+        ("wire", lambda i, g: (MsgID.REQ_COMPLETE_TASK,
+                               wire.ReqCompeleteTask(task_id=b"t_hunt"))),
+        ("wire", lambda i, g: (MsgID.REQ_BUILD_OPERATE, fam.ReqBuildOperate(
+            row=0, functype=int(fam.SLGFuncType.COLLECT_GOLD)))),
+    ]
+
+
+def mw_run(role, seats, *, device: str, now: float = 1000.0, digests=None):
+    """Drive the script through ``role`` (one step a frame, then
+    ``role.execute``, ended by a device sync): per-frame ms (the step's
+    handlers plus the frame), the handlers' ms, each frame's exclusive
+    stage times, the Player BuffList rows in use after each frame, and
+    the clock (``now``, continued from the frames before)."""
+    from noahgameframe_tpu_torch.net import transport as tr
+    from noahgameframe_tpu_torch.net import wire
+
+    w, k = role.game_world, role.kernel
+    steps = mw_steps(w, seats)
+    npcs = [g for g in k.store._hosts["NPC"].row_guid if g is not None]
+    dt = w.config.dt * 1.0001
+    out = {"frame_ms": [], "handler_ms": [], "stages": [], "buff_rows": []}
+    for f, step in enumerate(steps):
+        t0 = time.perf_counter()
+        if step is not None:
+            kind, make = step
+            if kind == "wire":
+                evs = []
+                for i, (ident, conn, g, _acct) in enumerate(seats):
+                    m = make(i, g)
+                    if m is not None:
+                        evs.append(tr.NetEvent(tr.EV_MSG, conn, int(m[0]),
+                                               wire.wrap(m[1], player_id=ident)))
+                role.server.dispatch.feed(evs)
+            elif kind == "host":
+                for i, (_ident, _conn, g, _acct) in enumerate(seats):
+                    make(i, g)
+            else:
+                for i, (_ident, _conn, g, _acct) in enumerate(seats):
+                    w.skills.use_skill(g, "slash", npcs[(7919 * i) % len(npcs)])
+        t1 = time.perf_counter()
+        now += dt
+        role.execute(now)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out["frame_ms"].append((t2 - t0) * 1e3)
+        out["handler_ms"].append((t1 - t0) * 1e3)
+        out["stages"].append(dict(role.stage_clock.last))
+        out["buff_rows"].append(int(k.state.classes["Player"].records["BuffList"].used.sum()))
+        if digests is not None:
+            digests.append(k.last_counters.get("state_digest", 0) & 0xFFFFFFFF)
+    out["now"] = now
+    return out
+
+
+def mw_outcome(role, seats, credited) -> dict:
+    """What the script left in the middleware, checked: each avatar's
+    bag, equip (gem socketed, taken off), hero at fight position 0, task
+    (finished where an avatar's kill was credited to it), buffs (expired),
+    team of five, guild of 50, drawn mail, rank, and SLG farm at level 2
+    with gold collected."""
+    from noahgameframe_tpu_torch.game.defines import PropertyGroup, SLGBuildingState, TaskState
+
+    w = role.game_world
+    n = len(seats)
+    guids = [s[2] for s in seats]
+    credited_set = set(credited)
+    bad = []
+    for i, g in enumerate(guids):
+        finished = w.tasks.status(g, "t_hunt")
+        want_task = TaskState.FINISH if g in credited_set else TaskState.IN_PROCESS
+        row = {
+            "potion": w.pack.item_count(g, "potion"), "token": w.pack.item_count(g, "token"),
+            "gems": w.items.gems_of(g, 0), "worn": w.equip.worn(g),
+            "equip_atk": w.properties.get_group_value(g, "ATK_VALUE", PropertyGroup.EQUIP),
+            "hero": w.heroes.fight_hero(g, 0),
+            "hero_atk": w.properties.get_group_value(g, "ATK_VALUE",
+                                                     PropertyGroup.FIGHTING_HERO),
+            "task": finished, "buffs": w.buffs.active_buffs(g),
+            "farm": w.slg_building.building_level(g, 0),
+            "farm_state": w.slg_building.building_state(g, 0),
+        }
+        want = {"potion": 1, "token": 0, "gems": ["ruby"], "worn": {}, "equip_atk": 0,
+                "hero": 0, "hero_atk": 4, "task": want_task, "buffs": [], "farm": 2,
+                "farm_state": int(SLGBuildingState.IDLE)}
+        if row != want:
+            bad.append((i, row))
+    check(not bad, f"every avatar's middleware state is the script's ({bad[:3]})")
+    teams = sorted(len(t.members) for t in w.team.teams.values())
+    guilds = sorted(len(gd.members) for gd in w.guilds.guilds.values())
+    check(teams == sorted([5] * (n // 5) + ([n % 5] if n % 5 else [])),
+          f"teams of five ({teams})")
+    check(len(guilds) == min(10, n) and sum(guilds) == n, f"10 guilds hold everyone ({guilds})")
+    check(all(m.drawn for i in range(n) for m in w.mail.mailbox(f"bot{i}")),
+          "every mail drawn")
+    check(len(w.rank.top("level", n + 1)) == n, "everyone ranked")
+    collected = [int(w.kernel.get_property(g, "Gold")) for g in guids]
+    return {"credited_kills": len(credited), "finished_tasks": len(credited_set),
+            "teams": len(teams), "guilds": len(guilds), "gold_total": sum(collected)}
+
+
+def buff_phase_ms(w) -> dict:
+    """The buff phase alone on the world's state, by CUDA events (the mean
+    of 10 eager calls), with its bytes: the least a pass must move (the
+    BuffList ConfigIdx, ExpireTick and used cells read, the RUNTIME_BUFF
+    row and used written) and the functional copy of the stat record this
+    implementation adds."""
+    from types import SimpleNamespace
+
+    k = w.kernel
+    ctx = SimpleNamespace(tick=k.state.tick, store=k.store)
+    ms = time_ms(lambda: w.buffs._buff_phase(k.state, ctx), reps=10, warmup=2)
+    least = copy = 0
+    for cname in w.buffs._rec_cols:
+        recs = k.state.classes[cname].records
+        c, r = recs["BuffList"].used.shape
+        least += c * r * (4 + 4 + 1) + c * len(STAT_NAMES) * 4 + c * r
+        copy += 2 * recs["CommPropertyValue"].i32.numel() * 4
+    bound = least / PEAK_BYTES_PER_S * 1e3
+    return {"ms": ms, "least_bytes": least, "bound_ms": bound, "stat_copy_bytes": copy,
+            "stat_copy_ms_at_peak": copy / PEAK_BYTES_PER_S * 1e3}
+
+
+def graph_tick_ms(w, ticks: int = 30) -> float:
+    """Median device time of ``ticks`` single graph ticks (run_device), after
+    one that captures."""
+    w.kernel.run_device(1, reconcile=False)
+    torch.cuda.synchronize()
+    return statistics.median(tick_times(w.kernel, ticks, graph=True))
+
+
+def states_equal(a, b) -> bool:
+    la, lb = tree.flatten(a)[0], tree.flatten(b)[0]
+    return len(la) == len(lb) and all(
+        (torch.equal(x, y.to(x.device)) if isinstance(x, torch.Tensor) else x == y)
+        for x, y in zip(la, lb))
+
+
+def module_states(w) -> str:
+    return json.dumps({m.name: m.checkpoint_state() for m in w.all_modules},
+                      sort_keys=True, default=str)
+
+
+def timed_kills(role) -> dict:
+    """Put a timed wrapper in place of ``TaskModule._on_kills`` among the
+    role's batch subscribers to ON_OBJECT_BE_KILLED; the dict it returns
+    accumulates the calls and their host seconds."""
+    from noahgameframe_tpu_torch.game import GameEvent
+
+    on_kills = role.game_world.tasks._on_kills
+    subs = role.kernel.events._batch_subs[int(GameEvent.ON_OBJECT_BE_KILLED)]
+    acc = {"calls": 0, "s": 0.0}
+
+    def timed(cname, mask, params):
+        t0 = time.perf_counter()
+        try:
+            on_kills(cname, mask, params)
+        finally:
+            acc["calls"] += 1
+            acc["s"] += time.perf_counter() - t0
+
+    subs[subs.index(on_kills)] = timed
+    return acc
+
+
+def mw_engine(n: int, sessions: int, *, fold: str) -> tuple:
+    """The script at ``n`` NPCs and ``sessions`` sessions on the card, after
+    warm-up frames that settle the captures: its timings, the kill walk's
+    host ms, fold launches against ticks served plus warm-ups, re-captures
+    and their causes, and the checked outcome.  Returns (line, role)."""
+    role, sink, seats, credited = mw_role(n, sessions, DEV)
+    k = role.kernel
+    book = k.costbook
+    kills = timed_kills(role)
+    now = settle(role)
+    recompiles0, seq0 = book.total_recompiles, book._seq
+    sck.reset_launch_counts()
+    t0_tick = k.tick_count
+    calls0, secs0 = kills["calls"], kills["s"]
+    sink["msgs"] = sink["bytes"] = 0
+    run = mw_run(role, seats, device=DEV, now=now)
+    ticks = k.tick_count - t0_tick
+    frames = len(run["frame_ms"])
+    launches = {nm: kk.launches for nm, kk in sck.KERNELS.items()}
+    warm = WARMUP_RUNS * sum(1 for r in book.compile_log
+                             if r["seq"] >= seq0 and r["entry"] == "kernel.step")
+    check(launches[fold] == ticks + warm,
+          f"(k): {fold} launched once per tick served ({launches} vs {ticks} + {warm})")
+    outcome = mw_outcome(role, seats, credited)
+    check(kills["calls"] > calls0, "(k): NPC kills reached TaskModule._on_kills")
+    check(max(run["buff_rows"]) == 2 * sessions and run["buff_rows"][-1] == 0,
+          f"buffs applied, then expired on the card ({run['buff_rows']})")
+    names = sorted({st for fr in run["stages"] for st in fr})
+    per_stage = {st: [fr.get(st, 0) / 1e6 for fr in run["stages"]] for st in names}
+    line = {
+        "entities": n, "sessions": sessions, "frames": frames, "ticks": ticks,
+        "fold": fold, "frame_ms_p50": pct(run["frame_ms"], 50),
+        "frame_ms_p99": pct(run["frame_ms"], 99), "frame_ms_max": max(run["frame_ms"]),
+        "handler_ms_p50": pct(run["handler_ms"], 50),
+        "handler_ms_max": max(run["handler_ms"]),
+        "quiet_frame_ms_p50": pct(run["frame_ms"][-MW_WAIT - 2:-2], 50),
+        "waterfall_p50_ms": {st: pct(v, 50) for st, v in per_stage.items()},
+        "on_kills_calls": kills["calls"] - calls0,
+        "on_kills_ms_per_frame": (kills["s"] - secs0) * 1e3 / frames,
+        "on_kills_ms_per_call": (kills["s"] - secs0) * 1e3 / (kills["calls"] - calls0),
+        "sync_msgs": sink["msgs"], "sync_bytes": sink["bytes"],
+        "launches": launches, "warmup_launches": warm,
+        "recaptures": book.total_recompiles - recompiles0,
+        "recapture_causes": {nm: dict(e.causes) for nm, e in sorted(book.entries.items())
+                             if e.causes},
+        "outcome": outcome,
+    }
+    return line, role
+
+
+def mw_parity(device: str):
+    """The script at MW_PARITY_N NPCs and MW_PARITY_SESSIONS sessions on
+    ``device`` with the digest on: (send-stream sha, digests, module state,
+    credited killers)."""
+    role, sink, seats, credited = mw_role(MW_PARITY_N, MW_PARITY_SESSIONS, device)
+    role.kernel.enable_digest()
+    digests = []
+    mw_run(role, seats, device=device, digests=digests)
+    mw_outcome(role, seats, credited)
+    out = (sink["sha"].hexdigest(), digests, module_states(role.game_world),
+           [str(g) for g in credited])
+    role.shut()
+    return out
+
+
+def phase_middleware(card: str):
+    """(k): the middleware world on the card (see the module docstring)."""
+    t_phase = time.perf_counter()
+    line, role = mw_engine(MW_N, MW_SESSIONS, fold="combat_fold")
+    w = role.game_world
+    buff_100k = buff_phase_ms(w)
+    # checkpoint: save, load into a fresh world of the recipe, compare
+    root = tempfile.mkdtemp(prefix="nf_mw_")
+    try:
+        save_split = w.save(os.path.join(root, "ckpt"))
+        # a fresh world of the recipe under a fresh role (which fills the
+        # same default stat table: config, which no checkpoint carries)
+        role2 = mw_role(MW_N, 0, DEV)[0]
+        w2 = role2.game_world
+        # host state the checkpoint does not carry, in either package
+        w2.combat._bucket_boost = w.combat._bucket_boost
+        load_split = w2.load(os.path.join(root, "ckpt"))
+        check(states_equal(w.kernel.state, w2.kernel.state), "loaded banks equal the saved")
+        check(module_states(w) == module_states(w2), "loaded module state equals the saved")
+        for x in (w, w2):
+            x.kernel.enable_digest()
+        da = [w.tick().counters["state_digest"] for _ in range(MW_CKPT_TICKS)]
+        db = [w2.tick().counters["state_digest"] for _ in range(MW_CKPT_TICKS)]
+        check(da == db, f"the next {MW_CKPT_TICKS} digests equal after the load")
+        check(states_equal(w.kernel.state, w2.kernel.state), "banks equal after 30 ticks")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    role.shut()
+    role2.shut()
+    del role, role2, w, w2
+    free()
+    # the same script under NF_PALLAS=2
+    os.environ["NF_PALLAS"] = "2"
+    try:
+        line2, role2 = mw_engine(MW_N, MW_ENGINE2_SESSIONS, fold="fused_neighborhood")
+    finally:
+        os.environ.pop("NF_PALLAS")
+    role2.shut()
+    del role2
+    free()
+    # cuda against cpu at 4,096
+    on_card, on_cpu = mw_parity(DEV), mw_parity("cpu")
+    check(on_card == on_cpu and len(set(on_card[1])) > 1,
+          "the middleware script's sends, digests, module state and killers equal on "
+          "cuda and cpu at 4,096")
+    free()
+    # 1M: the graph tick with the stack (phase 3 timed it without), and
+    # the buff phase
+    t0 = time.perf_counter()
+    big = mw_world(N_MAIN, 64, DEV)
+    build_s = time.perf_counter() - t0
+    tick_mw = graph_tick_ms(big)
+    prof_mw = profile_ticks(big.kernel, 5, host_ops=False, graph=True)
+    buff_1m = buff_phase_ms(big)
+    del big
+    free()
+    emit({"phase": "middleware", "card": card, "frame_limit_ms": FRAME_LIMIT_MS,
+          "batch_100k": line, "batch_100k_engine2": line2,
+          "served_batch_beside": {k2: SERVED_BATCH.get(k2) for k2 in (
+              "frame_ms_p50", "frame_ms_p99", "waterfall_p50_ms")},
+          "buff_phase_100k": buff_100k, "buff_phase_1m": buff_1m,
+          "graph_tick_1m_ms": {"middleware": tick_mw,
+                               "phase3_no_middleware": MAIN_TICK_MS[0] if MAIN_TICK_MS
+                               else None},
+          "graph_tick_1m_profile": {k2: prof_mw[k2] for k2 in ("busy_share", "top")},
+          "world_build_1m_s": build_s,
+          "checkpoint": {"ticks_compared": MW_CKPT_TICKS, **save_split, **load_split},
+          "cuda_cpu_equal": {"entities": MW_PARITY_N, "sessions": MW_PARITY_SESSIONS,
+                             "frames": len(on_card[1]), "last_digest": on_card[1][-1]},
+          "seconds": time.perf_counter() - t_phase})
+    return {nm: line["launches"][nm] + line2["launches"][nm] for nm in sck.KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3163,6 +3646,8 @@ def main() -> int:
     free()
     served_launches = phase_served(card)
     free()
+    middleware_launches = phase_middleware(card)
+    free()
     cluster_launches = phase_cluster(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
@@ -3182,6 +3667,7 @@ def main() -> int:
          "resumed_launches": persist_launches[name],
          "host_layer_launches": host_launches[name],
          "served_launches": served_launches[name],
+         "middleware_launches": middleware_launches[name],
          "cluster_launches": cluster_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],

@@ -266,8 +266,8 @@ def _rooms_point(args, device: torch.device, n_rooms: int, sync) -> dict:
     train_k = int(args.train or 0)
     t0 = time.perf_counter()
     w = GameWorld(WorldConfig(npc_capacity=per_room, player_capacity=8, extent=64.0,
-                              seed=args.seed, combat=True, movement=True, regen=True,
-                              verlet_skin=2.0), device=device)
+                              seed=args.seed, middleware=False, combat=True,
+                              movement=True, regen=True, verlet_skin=2.0), device=device)
     w.start()
     w.scene.create_scene(1, width=64.0)
     w.seed_npcs(seeded, rng=np.random.default_rng(args.seed + 100))

@@ -1,12 +1,12 @@
 """GameWorld: one-call assembly of the standard game stack.
 
-Counterpart of ``noahgameframe_tpu/game/world.py`` with
-``middleware=False``, which is this port's default (``WorldConfig.middleware``;
-the JAX package's default is ``True``, and ``True`` raises
-``NotImplementedError`` here until the middleware stack is ported): kernel, scene, scene process, components, property
-config, stats, level, skills, movement, combat, regen and telemetry, in
-three plugins of one :class:`PluginManager` (``GameWorld.pm``), in the
-JAX package's order (which fixes the timer slots).  :meth:`GameWorld.start`
+Counterpart of ``noahgameframe_tpu/game/world.py``: kernel, scene, scene
+process, components, property config, stats, level, skills, the sixteen
+middleware modules (items, heroes, tasks, buffs, the social modules and
+SLG; ``WorldConfig.middleware``, on by default as there), movement, combat,
+regen and telemetry, in three plugins of one :class:`PluginManager`
+(``GameWorld.pm``), in the JAX package's order (which fixes the timer
+slots and the order of phases of equal ``order``).  :meth:`GameWorld.start`
 is ``pm.start()`` and :meth:`GameWorld.run` its frame loop.
 :meth:`GameWorld.save` and :meth:`GameWorld.load` checkpoint the world in
 the JAX package's format (persist/checkpoint.py).
@@ -31,15 +31,30 @@ from ..kernel.plugin import Plugin, PluginManager
 from ..kernel.scene import SceneModule
 from ..persist.checkpoint import load_world, save_world
 from ..telemetry.module import TelemetryModule
+from .buff import BuffModule
 from .combat import CombatModule, SkillModule
 from .defines import COMM_PROPERTY_RECORD, PropertyGroup
+from .hero import HeroModule
+from .items import EquipModule, ItemModule, PackModule
 from .level import LevelModule
 from .movement import MovementModule
 from .property_config import PropertyConfigModule
 from .regen import RegenModule
 from .scene_process import SceneProcessModule
 from .schema import standard_registry
+from .slg import SLGBuildingModule, SLGShopModule
+from .social import (
+    FriendModule,
+    GmModule,
+    GuildModule,
+    MailModule,
+    PvpMatchModule,
+    RankModule,
+    ShopModule,
+    TeamModule,
+)
 from .stats import PropertyModule
+from .task import TaskModule
 
 
 @dataclasses.dataclass
@@ -60,12 +75,9 @@ class WorldConfig:
     # Verlet skin of the combat grid (ops/verlet.py); None defers to the
     # NF_VERLET_SKIN knob, <= 0 disables (rebuild every tick)
     verlet_skin: Optional[float] = None
+    middleware: bool = True  # items/hero/task/buff/social/SLG stack
     # private is included so owner-only state reaches its own client
     diff_flags: tuple = ("public", "private", "upload")
-    # the items/hero/task/buff/social/SLG stack.  The JAX package defaults
-    # to True; the port has no middleware yet, so it defaults to False and
-    # True raises (never silently ignored)
-    middleware: bool = False
 
 
 class GameWorld:
@@ -75,11 +87,6 @@ class GameWorld:
     def __init__(self, config: Optional[WorldConfig] = None,
                  registry: Optional[ClassRegistry] = None, device=None):
         self.config = cfg = config or WorldConfig()
-        if cfg.middleware:
-            raise NotImplementedError(
-                "WorldConfig(middleware=True): the middleware stack (items, "
-                "heroes, tasks, buffs, social, SLG) is ROADMAP item 3 of the "
-                "port; build the world with middleware=False")
         self.kernel = Kernel(
             registry or standard_registry(),
             StoreConfig(
@@ -105,6 +112,39 @@ class GameWorld:
         self.properties = PropertyModule()
         self.level = LevelModule(self.property_config, self.properties)
         self.skills = SkillModule()
+        # the middleware modules a game role looks up; None on a world
+        # without the middleware stack, where its handlers are no-ops
+        self.pack = self.items = self.equip = self.heroes = self.tasks = None
+        self.buffs = self.team = self.mail = self.rank = self.shop = None
+        self.friends = self.guilds = self.gm = self.pvp = None
+        self.slg_building = self.slg_shop = None
+        middleware: List[Module] = []
+        if cfg.middleware:
+            self.pack = PackModule()
+            self.items = ItemModule(self.pack)
+            self.equip = EquipModule(self.pack, self.properties)
+            self.heroes = HeroModule(self.properties)
+            self.heroes.scene_process = self.scene_process
+            self.items.heroes = self.heroes
+            self.items.level = self.level
+            self.items.equip = self.equip
+            self.equip.items = self.items
+            self.tasks = TaskModule(self.level)
+            self.buffs = BuffModule()
+            self.team = TeamModule()
+            self.mail = MailModule(self.pack)
+            self.rank = RankModule()
+            self.shop = ShopModule(self.pack)
+            self.friends = FriendModule()
+            self.guilds = GuildModule()
+            self.gm = GmModule(self.level, self.pack)
+            self.pvp = PvpMatchModule()
+            self.slg_building = SLGBuildingModule(self.pack)
+            self.slg_shop = SLGShopModule(self.pack, self.slg_building)
+            middleware = [self.pack, self.items, self.equip, self.heroes,
+                          self.tasks, self.buffs, self.team, self.mail,
+                          self.rank, self.shop, self.friends, self.guilds,
+                          self.gm, self.pvp, self.slg_building, self.slg_shop]
         self.movement = MovementModule(extent=cfg.extent) if cfg.movement else None
         self.combat = None
         if cfg.combat:
@@ -117,18 +157,12 @@ class GameWorld:
                 verlet_skin=cfg.verlet_skin,
             )
         self.regen = RegenModule(period_s=cfg.regen_period_s) if cfg.regen else None
-        # the middleware modules a game role looks up; None on a world
-        # without the middleware stack, where its handlers are no-ops
-        self.pack = self.items = self.equip = self.heroes = self.tasks = None
-        self.buffs = self.team = self.mail = self.rank = self.shop = None
-        self.friends = self.guilds = self.gm = self.pvp = None
-        self.slg_building = self.slg_shop = None
         # registry, tracer, census and the kernel's cost book; attached to
         # the kernel in after_init
         self.telemetry = TelemetryModule()
         server = [m for m in (self.scene, self.scene_process, self.components,
-                              self.properties, self.level, self.skills, self.movement,
-                              self.combat, self.regen, self.telemetry)
+                              self.properties, self.level, self.skills, *middleware,
+                              self.movement, self.combat, self.regen, self.telemetry)
                   if m is not None]
         self._rng = np.random.default_rng(cfg.seed)
         self.pm = PluginManager(app_name="game")
@@ -147,7 +181,7 @@ class GameWorld:
     def all_modules(self) -> List[Module]:
         """Every registered module: the ``modules`` argument of
         persist.checkpoint's save_world/load_world, so module host state
-        survives a resume."""
+        (teams, guilds, mail, ranks, buff defs) survives a resume."""
         return list(self.pm.modules.values())
 
     def save(self, path) -> dict:
@@ -226,6 +260,7 @@ def build_benchmark_world(n_npcs: int, extent: Optional[float] = None,
             combat=combat,
             seed=seed,
             attack_period_s=attack_period_s,
+            middleware=False,
             player_capacity=player_capacity,
         ),
         device=device,

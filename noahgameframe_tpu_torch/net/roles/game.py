@@ -25,11 +25,9 @@ the interest and serve lanes (``game_interest``).
 
 Deviations from the JAX package: ``GameRole(..., device=None)`` builds its
 default world on ``"cuda"`` (``device="cpu"`` on request) and follows a
-given world's device otherwise; the default world is
-``WorldConfig(combat=False, movement=False, regen=True)`` with
-``middleware=False`` (the port has no middleware stack yet, where the JAX
-default world has it), so the middleware handlers are no-ops, as the JAX
-role's are on a ``middleware=False`` world.  On a card the frame's
+given world's device otherwise; the default world is JAX's
+``WorldConfig(combat=False, movement=False, regen=True)``, with the
+middleware stack the middleware handlers drive.  On a card the frame's
 observed tick is a CUDA graph (``graph_tick=None``; ``Kernel.set_graph_tick``),
 whose replay writes the state banks in place.  ``NF_STAGE_TIMING=1``
 synchronizes the card after the tick dispatch.  The
@@ -179,7 +177,7 @@ class GameRole(GameHandlersMixin, GameSwitchMixin, GameSyncMixin, GameInterestMi
         # overlap mode: deferred Position-lane inputs from last frame
         self._serve_pending: Dict[str, object] = {}
         self.game_world = world if world is not None else GameWorld(
-            WorldConfig(combat=False, movement=False, regen=True, middleware=False),
+            WorldConfig(combat=False, movement=False, regen=True),
             device=device,
         ).start()
         self.kernel = self.game_world.kernel

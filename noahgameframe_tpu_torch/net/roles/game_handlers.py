@@ -4,10 +4,10 @@ equipment, tasks, teams, guilds, GM commands, PVP, SLG), all dispatched
 from the handler table :meth:`GameRole._install` registers.
 
 Counterpart of ``noahgameframe_tpu/net/roles/game.py:871-1590`` and
-``:1791-1870``.  On a world without the middleware stack (the port's only
-kind so far: ``WorldConfig.middleware=False``) the middleware handlers
-find their module ``None`` and do nothing, as the JAX role does on such a
-world.
+``:1791-1870``.  On a world without the middleware stack
+(``WorldConfig(middleware=False)``, as the bench worlds are) the middleware
+handlers find their module ``None`` and do nothing, as the JAX role does
+on such a world.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ from .codec import ObjectDataPack, apply_snapshot, resolve_pending, snapshot_obj
 from .kv import FileKV, KVStore, MemoryKV  # noqa: F401
 from .mysql import MiniMysql, MysqlClient, MysqlError, MysqlModule  # noqa: F401
 from .resp import MiniRedisServer, RespKV  # noqa: F401
+from .social import SocialDataAgent  # noqa: F401
 from .sql import SqlModule, emit_ddl  # noqa: F401
 from .writebehind import (  # noqa: F401
     KVBackend,

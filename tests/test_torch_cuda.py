@@ -339,7 +339,7 @@ def test_rooms_on_the_card_match_the_cpu(cuda, engine):
 
     def batch(device):
         w = GameWorld(WorldConfig(npc_capacity=32, player_capacity=8, extent=64.0, seed=7,
-                                  verlet_skin=2.0), device=device)
+                                  verlet_skin=2.0, middleware=False), device=device)
         w.start()
         w.scene.create_scene(1, width=64.0)
         w.seed_npcs(16, rng=np.random.default_rng(107))
@@ -463,3 +463,18 @@ def test_served_role_on_cuda_matches_cpu(cuda):
     a = chip_smoke.stream_run(65536, 64, "cuda", 8, serve_batch=True)
     b = chip_smoke.stream_run(65536, 64, "cpu", 8, serve_batch=True)
     assert a == b
+
+
+def test_middleware_script_on_cuda_matches_cpu(cuda, monkeypatch):
+    """chip_smoke.py phase (k)'s middleware script (items, equips and gems,
+    heroes, a kill task, two timed buffs expiring on the card, teams,
+    guilds, mail, rank, an SLG farm; graph tick, batched serving) at 2,048
+    NPCs and 16 sessions on the card and on the CPU: equal send streams,
+    digests, module state and credited killers."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "MW_PARITY_N", 2048)
+    monkeypatch.setattr(chip_smoke, "MW_PARITY_SESSIONS", 16)
+    on_card = chip_smoke.mw_parity("cuda")
+    assert on_card == chip_smoke.mw_parity("cpu")
+    assert len(set(on_card[1])) > 1

@@ -41,7 +41,7 @@ def _worlds(seed):
     a = JWorld(JConfig(npc_capacity=64, player_capacity=48, extent=EXTENT, seed=seed,
                        middleware=False)).start()
     b = GameWorld(WorldConfig(npc_capacity=64, player_capacity=48, extent=EXTENT,
-                              seed=seed), device="cpu").start()
+                              seed=seed, middleware=False), device="cpu").start()
     for w in (a, b):
         k = w.kernel
         k.store.guids.pin(7000)

@@ -49,8 +49,8 @@ def _world(jax_side: bool):
         w = JWorld(JConfig(npc_capacity=128, player_capacity=8, extent=32.0, seed=4,
                            middleware=False)).start()
     else:
-        w = GameWorld(WorldConfig(npc_capacity=128, player_capacity=8, extent=32.0, seed=4),
-                      device="cpu").start()
+        w = GameWorld(WorldConfig(npc_capacity=128, player_capacity=8, extent=32.0, seed=4,
+                                  middleware=False), device="cpu").start()
     w.kernel.store.guids.pin(300)
     w.scene.create_scene(1, width=32.0)
     w.seed_npcs(100)

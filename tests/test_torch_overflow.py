@@ -18,7 +18,7 @@ CROWD = dict(combat=True, movement=False, regen=False, npc_capacity=64, player_c
 
 def _world(jax_side: bool, emit_events: bool = True, **cfg):
     w = (JWorld(JConfig(middleware=False, **cfg)) if jax_side
-         else GameWorld(WorldConfig(**cfg), device="cpu"))
+         else GameWorld(WorldConfig(middleware=False, **cfg), device="cpu"))
     w.combat.emit_events = emit_events
     return w.start()
 

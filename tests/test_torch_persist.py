@@ -130,8 +130,8 @@ def _recipe(jax_side: bool, skin: str = ""):
             w = JWorld(JConfig(npc_capacity=2048, extent=extent, seed=SEED,
                                middleware=False)).start()
         else:
-            w = GameWorld(WorldConfig(npc_capacity=2048, extent=extent, seed=SEED),
-                          device="cpu").start()
+            w = GameWorld(WorldConfig(npc_capacity=2048, extent=extent, seed=SEED,
+                                      middleware=False), device="cpu").start()
     w.kernel.store.guids.pin(1000)
     w.scene.create_scene(1, width=extent)
     w.seed_npcs(N_NPC)
@@ -229,8 +229,8 @@ def _small(jax_side: bool, npc_capacity: int = 64):
                            npc_capacity=npc_capacity, player_capacity=16)).start()
     else:
         w = GameWorld(WorldConfig(combat=False, movement=False, regen=False,
-                                  npc_capacity=npc_capacity, player_capacity=16),
-                      device="cpu").start()
+                                  middleware=False, npc_capacity=npc_capacity,
+                                  player_capacity=16), device="cpu").start()
     w.kernel.store.guids.pin(500)
     w.scene.create_scene(1)
     return w

@@ -60,7 +60,8 @@ def _seed_train(w, engine):
 
 
 def _port_batch(engine=0):
-    w = _seed_train(GameWorld(WorldConfig(**TRAIN_CONFIG), device="cpu"), engine)
+    w = _seed_train(GameWorld(WorldConfig(middleware=False, **TRAIN_CONFIG), device="cpu"),
+                    engine)
     batch = RoomBatch(w.kernel, ROOMS)
     packer = RoomBinPacker(batch.capacity)
     for i in range(ROOMS):
@@ -138,8 +139,8 @@ def test_vmap_fallback_switch():
 
 def _recipe(seed):
     w = GameWorld(WorldConfig(npc_capacity=48, player_capacity=8, extent=48.0, seed=seed,
-                              combat=True, movement=True, regen=True, verlet_skin=2.0),
-                  device="cpu")
+                              middleware=False, combat=True, movement=True, regen=True,
+                              verlet_skin=2.0), device="cpu")
     w.start()
     w.scene.create_scene(1, width=48.0)
     w.seed_npcs(16, rng=np.random.default_rng(seed + 100))

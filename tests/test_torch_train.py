@@ -36,7 +36,7 @@ def _seed(w, seed=7):
 
 
 def _recipe():
-    return _seed(GameWorld(WorldConfig(**CONFIG), device="cpu"))
+    return _seed(GameWorld(WorldConfig(middleware=False, **CONFIG), device="cpu"))
 
 
 def _jax_recipe():

@@ -184,7 +184,7 @@ def test_overflow_resize_drops_and_reprimes_the_cache(monkeypatch):
 
     kw = dict(npc_capacity=128, extent=24.0, seed=2, aoi_bucket=8, verlet_skin=2.0)
     a = JaxWorld(JaxConfig(middleware=False, **kw)).start()
-    b = GameWorld(WorldConfig(**kw), device="cpu").start()
+    b = GameWorld(WorldConfig(middleware=False, **kw), device="cpu").start()
     mark = b.kernel.costbook.mark()
     for w in (a, b):
         w.scene.create_scene(1, width=24.0)

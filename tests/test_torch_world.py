@@ -141,6 +141,10 @@ def test_default_device_is_cuda(monkeypatch):
         torch_world(64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GameWorld()
+    # the middleware stack's modules follow the world's device
+    w = GameWorld(device="cpu").start()
+    assert w.config.middleware and w.buffs._table.device.type == "cpu"
+    assert all(c.device.type == "cpu" for c, _, _ in w.buffs._rec_cols.values())
     from noahgameframe_tpu_torch.net.roles.base import RoleConfig
     from noahgameframe_tpu_torch.net.roles.game import GameRole
     from noahgameframe_tpu_torch.replay.replayer import make_offline_role
@@ -159,18 +163,71 @@ def test_default_device_is_cuda(monkeypatch):
     role.shut()
 
 
-def test_middleware_world_raises_until_ported():
-    """WorldConfig.middleware defaults to False in the port (the JAX
-    package's default is True) and True raises, naming the roadmap item."""
-    from noahgameframe_tpu_torch.game.world import WorldConfig
+def _assembly(w) -> dict:
+    """A world's module list, plugin order and composed phases."""
+    return {
+        "modules": [m.name for m in w.all_modules],
+        "plugins": [(name, [m.name for m in plugin.modules])
+                    for name, plugin in w.pm.plugins.items()],
+        "phases": [(p.name, p.order) for p in w.kernel._composed],
+    }
 
-    assert WorldConfig().middleware is False
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        GameWorld(WorldConfig(middleware=True), device="cpu")
-    w = GameWorld(device="cpu")
-    assert all(getattr(w, a) is None for a in (
+
+def _digest_walk(w, ticks: int = 30):
+    """Seed NPCs, two players with buffs (one expiring inside the walk),
+    then ``ticks`` frames; the per-tick state digests."""
+    k = w.kernel
+    k.store.guids.pin(5000)
+    if 1 not in w.scene.scenes:
+        w.scene.create_scene(1)
+    w.seed_npcs(30)
+    w.buffs.define_buff("swift", 0.3, {"MOVE_SPEED": 50, "ATK_VALUE": 3})
+    w.buffs.define_buff("stone", 100.0, {"DEF_VALUE": 9})
+    for i in range(2):
+        g = k.create_object("Player", {"Name": f"D{i}", "Account": f"d{i}"},
+                            scene=1, group=0)
+        w.buffs.apply_buff(g, "swift")
+        w.buffs.apply_buff(g, "stone")
+    k.enable_digest()
+    out = []
+    for _ in range(ticks):
+        w.tick()
+        out.append(k.last_counters["state_digest"])
+    return out
+
+
+@pytest.mark.parametrize("which", ["world", "role"])
+def test_default_world_is_the_jax_middleware_stack(which):
+    """``WorldConfig()`` and ``GameRole()``'s default world carry the
+    middleware, as in the JAX package: the same module list, plugin
+    order and phase orders (buffs at 55), and the same first 30 state
+    digests over a seeded walk with buffs."""
+    from noahgameframe_tpu.game.world import GameWorld as JWorld
+    from noahgameframe_tpu.game.world import WorldConfig as JConfig
+    from noahgameframe_tpu.net.roles.base import RoleConfig as JRoleConfig
+    from noahgameframe_tpu.net.roles.game import GameRole as JRole
+    from noahgameframe_tpu_torch.game.world import WorldConfig
+    from noahgameframe_tpu_torch.net.roles.base import RoleConfig
+    from noahgameframe_tpu_torch.net.roles.game import GameRole
+
+    assert WorldConfig().middleware is True
+    roles = []
+    if which == "world":
+        a, b = JWorld(JConfig()).start(), GameWorld(WorldConfig(), device="cpu").start()
+    else:
+        roles = [JRole(JRoleConfig(6, 0, "G", "127.0.0.1", 0), backend="py"),
+                 GameRole(RoleConfig(6, 0, "G", "127.0.0.1", 0), backend="py",
+                          device="cpu")]
+        a, b = (r.game_world for r in roles)
+    assert _assembly(a) == _assembly(b)
+    assert ("BuffModule.buffs", 55) in _assembly(b)["phases"]
+    assert all(getattr(b, attr) is not None for attr in (
         "buffs", "team", "mail", "rank", "shop", "friends", "guilds", "gm", "pvp",
         "slg_building", "slg_shop", "pack", "items", "equip", "heroes", "tasks"))
+    da, db = _digest_walk(a), _digest_walk(b)
+    assert da == db and len(set(db)) > 1
+    for r in roles:
+        r.shut()
 
 
 def test_store_key_and_verlet_cache_default_to_cuda(monkeypatch):
