@@ -104,7 +104,8 @@ non-zero without printing a result:
    streams with equal digests; a journal of 60
    frames recorded on the card replays digest-clean on the card and on
    the CPU, and a perturbed replay is bisected to the injected tick; then
-   the bench's ``--served`` line at 100k and 500 sessions.  The kernel
+   the bench's ``--served`` line at 100k and 500 sessions.  The overlap
+   and train engines serve 10 and 16 frames, the others 30.  The kernel
    table gains each kernel's launches on this path (``served_launches``);
 (j) the five-role cluster (run after (i)): ``LocalCluster(backend="auto",
    http_port=0, n_games=2, device="cuda")`` over two 100,000-NPC worlds
@@ -148,7 +149,28 @@ non-zero without printing a result:
    4,096 NPCs and 32 sessions the card and the CPU send equal streams
    with equal digests, module state and credited killers.  The kernel
    table gains each kernel's launches on this path
-   (``middleware_launches``).
+   (``middleware_launches``);
+(l) the multi-device layer (run last; every mesh a virtual mesh of
+   ``cuda:0``, ``make_mesh(n, device="cuda:0", virtual=True)``): the 1M
+   world of phase 3, settled 20 frames, on 4 shards: 30 observed ticks
+   under ``NF_PALLAS=1`` and under ``NF_PALLAS=2``, ``run_device(30)``
+   and ``train(K=8)`` on the mesh all give the single-device graph
+   tick's digest stream; the sharded tick's ms, its collective bytes and
+   each fold's launches a shard, and one tick with every shard's launch
+   held against its plain version.  The elastic mesh (the 1M recipe's
+   extent and cells, 524,288 NPCs in a 1,572,864-row bank, combat and
+   movement off, a spatial placement): grow 2 -> 4 and drain shard 3
+   under ticks, each op's seconds, the canonical digest pinned to a
+   one-shard control's after each; migrated, overflow and dropped (0).
+   The spatial preset at 4,194,304 entities (the JAX bench's geometry)
+   on 4 shards against 1, at skin 0 and 2.0: HP by gid equal every tick,
+   ticks/s, rows migrated.  16,384 rooms of the rooms recipe on 4 shards
+   against the unsharded batch: equal digest lanes every tick.  Two
+   processes of this script (``--mesh-worker``) in a gloo group, 2 shards
+   of ``cuda:0`` each: one sharded tick at 65,536 rows, both checksums
+   equal the local tick's.  A 4,096-row world on 4 shards gives equal
+   digests on cpu and cuda.  The kernel table gains each kernel's
+   launches on the sharded 1M path (``sharded_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1807,6 +1829,9 @@ SERVED_N = 100_000
 SERVED_1M = N_MAIN
 SERVED_SESSIONS = 500
 SERVED_FRAMES = 30
+# the engines after batched serve fewer frames (the cut that makes room
+# for phase (l) in the time limit); train8 keeps whole trains
+SERVED_FRAMES_OF = {"overlap": 10, "train8": 16}
 SERVED_WARMUP = 3
 SERVED_RADIUS = 8.0
 FRAME_LIMIT_MS = 1000.0 / 30.0
@@ -2047,7 +2072,8 @@ def phase_served(card: str):
     t_phase = time.perf_counter()
     engines = {}
     for name, kw in ENGINES.items():
-        engines[name] = served_engine(name, SERVED_N, SERVED_FRAMES, **kw)
+        engines[name] = served_engine(name, SERVED_N, SERVED_FRAMES_OF.get(name, SERVED_FRAMES),
+                                      **kw)
     SERVED_BATCH.update(engines["batch"])
     # the same world and frames under legacy and batch: equal wire streams
     sha = {}
@@ -3609,10 +3635,455 @@ def phase_middleware(card: str):
     return {nm: line["launches"][nm] + line2["launches"][nm] for nm in sck.KERNELS}
 
 
+# -- (l) the multi-device layer ----------------------------------------------------------
+MESH_SHARDS = 4
+MESH_TICKS = 30
+MESH_TRAIN_K = 8
+# a bank of 3 x 2^19 rows divides the 2-, 3- and 4-shard meshes of the
+# grow and the drain; a third full, so the drained shard's rows fit
+ELASTIC_CAP = 3 << 19
+ELASTIC_N = 1 << 19
+ELASTIC_BUDGET = 65_536
+SPATIAL_N = 4_194_304  # BASELINE config 5
+SPATIAL_TICKS = 8
+MESH_ROOM_TICKS = 10
+DIST_N = 65_536
+MESH_PARITY_N, MESH_PARITY_TICKS = 4096, 12
+
+
+MESH_DEVICE = "cuda:0"  # the one card every virtual mesh of (l) lives on
+
+
+def virtual_mesh(n: int, device: str = None, axis: str = "shard"):
+    from noahgameframe_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, axis=axis, device=device or MESH_DEVICE, virtual=True)
+
+
+def detach_mesh(k, snap) -> None:
+    """Take a kernel off its mesh and back to the snapshot's state."""
+    k.sharded = None
+    k.state = fresh(snap)
+
+
+def sharded_kernel(k, n: int = MESH_SHARDS):
+    from noahgameframe_tpu_torch.parallel.shard import ShardedKernel
+
+    sk = ShardedKernel(k, mesh=virtual_mesh(n))
+    sk.place()
+    return sk
+
+
+def held_against_plain(k, sk) -> dict:
+    """One sharded tick with each shard's fold held against its plain
+    version on the same tables (tolerance 0): {kernel: (calls, max err)}."""
+    from noahgameframe_tpu_torch.game import combat as gcm
+
+    errs = {"combat_fold": [], "fused_neighborhood": []}
+    real = {"combat_fold": gcm.combat_fold, "fused_neighborhood": gcm.fused_neighborhood}
+
+    def fold(vic, att, radius):
+        out = real["combat_fold"](vic, att, radius)
+        ref = sck.combat_fold_plain(vic, att, radius)
+        errs["combat_fold"].append(max(int((a.long() - b.long()).abs().max())
+                                       for a, b in zip(out, ref)))
+        return out
+
+    def fused(bank, vs, ats, radius):
+        out = real["fused_neighborhood"](bank, vs, ats, radius)
+        ref = sck.fused_neighborhood_plain(bank, vs, ats, radius)
+        errs["fused_neighborhood"].append(max(int((a.long() - b.long()).abs().max())
+                                              for a, b in zip(out, ref)))
+        return out
+
+    gcm.combat_fold, gcm.fused_neighborhood = fold, fused
+    try:
+        sk.tick()
+    finally:
+        gcm.combat_fold, gcm.fused_neighborhood = real["combat_fold"], real["fused_neighborhood"]
+    return {nm: (len(v), max(v) if v else None) for nm, v in errs.items()}
+
+
+def mesh_world_1m():
+    """(l) 1: the 1M world on a 4-shard virtual mesh of the card against
+    the single-device graph tick, under engines 1 and 2."""
+    w = settled_world(N_MAIN, DEV)
+    k = w.kernel
+    s0 = snapshot(k.state)
+    k.set_graph_tick(True)
+    want = [k.tick().counters["state_digest"] for _ in range(MESH_TICKS)]
+    k.state = fresh(s0)
+    single_ms = statistics.median(tick_times(k, 10, graph=DEV == "cuda"))
+    k.set_graph_tick(False)
+    out = {"single_graph_tick_ms": single_ms, "engines": {}}
+    launches = {nm: 0 for nm in sck.KERNELS}
+    held = {}
+    for engine, name in ((1, "combat_fold"), (2, "fused_neighborhood")):
+        os.environ["NF_PALLAS"] = str(engine)
+        try:
+            detach_mesh(k, s0)
+            sk = sharded_kernel(k)
+            sck.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [sk.tick().counters["state_digest"] for _ in range(MESH_TICKS)]
+            torch.cuda.synchronize()
+            observed_s = time.perf_counter() - t0
+            step_bytes = sk.last_step_bytes
+            ticks = MESH_TICKS
+            check(got == want, f"engine {engine}: the 4-shard digest stream equals the "
+                               "single-device graph tick's")
+            detach_mesh(k, s0)
+            sk = sharded_kernel(k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sk.run_device(MESH_TICKS)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            ticks += MESH_TICKS
+            check(sk.digest() & 0xFFFFFFFF == want[-1] & 0xFFFFFFFF,
+                  f"engine {engine}: run_device({MESH_TICKS}) on the mesh lands on the "
+                  "single-device digest")
+            detach_mesh(k, s0)
+            sk = sharded_kernel(k)
+            sk.configure_train(MESH_TRAIN_K)
+            outs = sk.train(MESH_TICKS)
+            ticks += MESH_TICKS
+            check([o.counters["state_digest"] for o in outs] == want,
+                  f"engine {engine}: train(K={MESH_TRAIN_K}) on the mesh gives the stream")
+            got_launches = {nm: kk.launches for nm, kk in sck.KERNELS.items()}
+            check(got_launches[name] >= ticks * MESH_SHARDS,
+                  f"engine {engine}: {name} launched on every shard of every tick "
+                  f"({got_launches[name]} for {ticks} ticks x {MESH_SHARDS} shards)")
+            for nm in launches:
+                launches[nm] += got_launches[nm]
+            held[name] = held_against_plain(k, sk)[name]
+            check(held[name][0] == MESH_SHARDS and held[name][1] == 0,
+                  f"engine {engine}: every shard's {name} equals its plain version")
+            out["engines"][engine] = {
+                "observed_tick_ms": observed_s / MESH_TICKS * 1e3,
+                "run_device_tick_ms": run_s / MESH_TICKS * 1e3,
+                "collective_bytes_per_tick": step_bytes,
+                "ticks": ticks, "launches": got_launches,
+                "per_shard_launches_per_tick": got_launches[name] / (ticks * MESH_SHARDS),
+                "last_digest": want[-1]}
+        finally:
+            os.environ.pop("NF_PALLAS", None)
+    del sk, w, k, s0
+    free()
+    out["held_against_plain"] = {nm: {"shards": c, "max_abs_err": e}
+                                 for nm, (c, e) in held.items()}
+    return out, launches, held
+
+
+def elastic_world(n_shards: int, mesh):
+    """The 1M benchmark recipe's extent and cells in an ELASTIC_CAP-row bank
+    with a spatial placement (combat and movement off: the walk draws a
+    row's target by its slot, and the fold breaks ties by row, so with
+    them a migrated row would not be a control's row), an identity in the
+    Gold column."""
+    from noahgameframe_tpu_torch.core.store import with_class
+    from noahgameframe_tpu_torch.parallel.rowmigrate import SpatialPlacement
+
+    extent = float(np.sqrt(N_MAIN / 0.4))
+    cell = 4.0
+    width = int(extent / cell)
+    pl = SpatialPlacement(class_name="NPC", pos_prop="Position", extent=extent,
+                          cell_size=cell, width=width, n_shards=n_shards,
+                          mig_budget=ELASTIC_BUDGET)
+    w = gw.GameWorld(gw.WorldConfig(npc_capacity=ELASTIC_CAP, extent=extent, combat=False,
+                                    movement=False, seed=SEED, middleware=False,
+                                    placement=pl, mesh=mesh), device=DEV)
+    w.start()
+    w.scene.create_scene(1, width=extent)
+    w.seed_npcs(ELASTIC_N)
+    k = w.kernel
+    col = k.store.spec("NPC").slot("Gold").col
+    cs = k.state.classes["NPC"]
+    i32 = cs.i32.clone()
+    i32[:, col] = torch.arange(i32.shape[0], dtype=torch.int32, device=i32.device)
+    k.state = with_class(k.state, "NPC", cs.replace(i32=i32))
+    return w, {"NPC": col}
+
+
+def mesh_elastic():
+    """(l) 2: grow 2 -> 4, drain shard 3, under ticks; the canonical digest
+    pinned to a one-shard control's after every op."""
+    from noahgameframe_tpu_torch.parallel.elastic import DigestControl
+
+    w, ident = elastic_world(2, virtual_mesh(2))
+    el = w.shard(ident_cols=ident, exodus_tick_bound=64)
+    ctl_world, _ = elastic_world(1, virtual_mesh(1))
+    control = DigestControl(ctl_world, ident)
+    k = w.kernel
+    out = {"rows": ELASTIC_N, "capacity": ELASTIC_CAP, "mig_budget": ELASTIC_BUDGET,
+           "ops": []}
+    stats = {"migrated": 0, "overflow": 0, "dropped": 0}
+
+    def tick(n=1):
+        for _ in range(n):
+            w.tick()
+            s = k.state.aux[w.migration.aux_key].cpu().numpy()
+            stats["migrated"] += int(s[:, 0].sum())
+            stats["overflow"] += int(s[:, 1].sum())
+            stats["dropped"] += int(s[:, 2].sum())
+
+    def pinned(tag):
+        check(el.digest() == control.advance_to(k.tick_count),
+              f"elastic {tag}: canonical digest equals the static control's")
+
+    tick(4)
+    pinned("warm@2")
+    for kind, arg in (("grow", 4), ("drain", 3)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        el.begin_grow(arg) if kind == "grow" else el.begin_drain(arg)
+        ticks = 0
+        for _ in range(100):
+            el.poll()
+            if el.inflight is None:
+                break
+            tick()
+            ticks += 1
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(el.inflight is None, f"elastic {kind} completed")
+        pinned(f"after {kind}")
+        out["ops"].append({**el.ops_done[-1], "seconds": secs, "ticks": ticks})
+    tick(3)
+    pinned("settled@3")
+    st = el.status()
+    check(st["dropped_rows"] == 0 and stats["dropped"] == 0, "elastic: no row dropped")
+    check(st["pop"] == st["pop_baseline"] == ELASTIC_N, "elastic: the population is kept")
+    check(stats["migrated"] > 0, "elastic: rows migrated")
+    out.update(stats, devices=el.n_devices, status=st)
+    del w, ctl_world, control, el, k
+    free()
+    return out
+
+
+def spatial_geom(n: int, n_shards: int, skin: float):
+    """The JAX package's bench geometry (``run_mesh_migrate``) for n
+    entities, with cells widened to radius + skin."""
+    from noahgameframe_tpu_torch.ops.stencil import auto_bucket
+    from noahgameframe_tpu_torch.parallel.spatial import SpatialGeom
+
+    radius = 4.0
+    cell = max(4.0, radius + skin)
+    extent = max(64.0, float(np.sqrt(n / 0.4)))
+    width = max(MESH_SHARDS, int(extent / cell))
+    width -= width % MESH_SHARDS
+    extent = width * cell
+    # +16 victim slots: a cell-bucket drop would make the dropped set
+    # depend on row order, which differs between placements
+    bucket = auto_bucket(n, width) + 16
+    att_bucket = auto_bucket(max(1, n // 30), width, lo=4, align=2) + 4
+    return SpatialGeom(extent=extent, cell_size=cell, width=width, n_shards=n_shards,
+                       bucket=bucket, att_bucket=att_bucket, radius=radius,
+                       mig_budget=8192, speed=1.0, attack_period=30, skin=skin)
+
+
+def mesh_spatial():
+    """(l) 3: the spatial preset at 4,194,304 entities, 4 shards against 1,
+    at skin 0 and 2.0: equal HP by gid every tick."""
+    from noahgameframe_tpu_torch.parallel.spatial import SpatialWorld
+
+    rng = np.random.default_rng(SEED)
+    out = {"entities": SPATIAL_N, "ticks": SPATIAL_TICKS, "runs": {}}
+    for skin in (0.0, 2.0):
+        g4 = spatial_geom(SPATIAL_N, MESH_SHARDS, skin)
+        pos = rng.uniform(1.0, g4.extent - 1.0, (SPATIAL_N, 2)).astype(np.float32)
+        hp = np.full(SPATIAL_N, 10_000, np.int32)
+        atk = rng.integers(5, 20, SPATIAL_N).astype(np.int32)
+        camp = (np.arange(SPATIAL_N) % 2).astype(np.int32)
+        worlds = {}
+        for shards in (MESH_SHARDS, 1):
+            g = g4._replace(n_shards=shards)
+            sw = SpatialWorld(g, mesh=virtual_mesh(shards))
+            t0 = time.perf_counter()
+            sw.place(pos, hp, atk, camp)
+            torch.cuda.synchronize()
+            worlds[shards] = (sw, time.perf_counter() - t0)
+
+        def hp_by_gid(sw):
+            st = sw.state
+            dst = torch.full((SPATIAL_N,), -1, dtype=torch.int32, device=st.hp.device)
+            dst[st.gid[st.active].long()] = st.hp[st.active]
+            return dst
+
+        run = {"geometry": dict(g4._asdict()), "migrated": 0, "tick_ms": {}}
+        secs = {MESH_SHARDS: 0.0, 1: 0.0}
+        for t in range(SPATIAL_TICKS):
+            for shards, (sw, _p) in worlds.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sw.step()
+                torch.cuda.synchronize()
+                secs[shards] += time.perf_counter() - t0
+                check(int(sw.stats_last[:, 1:].sum()) == 0,
+                      f"spatial skin {skin}, {shards} shards: no overflow or drop "
+                      f"{sw.stats_last.sum(axis=0).tolist()}")
+            run["migrated"] += int(worlds[MESH_SHARDS][0].stats_last[:, 0].sum())
+            check(torch.equal(hp_by_gid(worlds[MESH_SHARDS][0]), hp_by_gid(worlds[1][0])),
+                  f"spatial skin {skin}: HP by gid equal on 4 shards and 1 at tick {t}")
+        check(run["migrated"] > 0, f"spatial skin {skin}: migration moved rows")
+        hp4 = hp_by_gid(worlds[MESH_SHARDS][0])
+        check(bool((hp4 < 10_000).any()), f"spatial skin {skin}: combat landed")
+        for shards, s in secs.items():
+            run["tick_ms"][shards] = s / SPATIAL_TICKS * 1e3
+            run[f"ticks_per_s_{shards}_shards"] = SPATIAL_TICKS / s
+            run[f"place_s_{shards}_shards"] = worlds[shards][1]
+        run["rebuilds_4_shards"] = worlds[MESH_SHARDS][0].rebuilds_total
+        out["runs"][str(skin)] = run
+        del worlds
+        free()
+    return out
+
+
+def mesh_rooms():
+    """(l) 4: 16,384 rooms of the rooms recipe over 4 shards: every room's
+    digest lane equals the unsharded batch's, every tick."""
+    w = rooms_recipe()
+    k = w.kernel
+    base = k.state.replace(aux={})
+    leaves, spec, _ = tree.flatten(base)
+    state = tree.unflatten(spec, [x.unsqueeze(0).expand(ROOMS_MAIN, *x.shape).clone()
+                                  for x in leaves])
+    seeds = torch.arange(SEED, SEED + ROOMS_MAIN, dtype=torch.int64, device=DEV)
+    state = state.replace(rng=torch.stack([torch.zeros_like(seeds), seeds], -1))
+    check(torch.equal(state.rng[7], prng_key(SEED + 7, DEV)), "room keys as prng_key gives")
+    # each batch takes its own copy: a captured step writes its batch's
+    # tensors in place
+    s0 = snapshot(state)
+    plain = rooms.RoomBatch(k, ROOMS_MAIN)
+    plain.load_state(fresh(s0))
+    sharded = rooms.RoomBatch(k, ROOMS_MAIN, mesh=virtual_mesh(MESH_SHARDS, axis="rooms"))
+    sharded.load_state(fresh(s0))
+    sck.reset_launch_counts()
+    times = {"plain": 0.0, "sharded": 0.0}
+    for t in range(MESH_ROOM_TICKS):
+        for name, b in (("plain", plain), ("sharded", sharded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.tick()
+            torch.cuda.synchronize()
+            times[name] += time.perf_counter() - t0
+        check(np.array_equal(plain.last_counters["state_digest"],
+                             sharded.last_counters["state_digest"]),
+              f"rooms: 4-shard digest lanes equal the unsharded batch's at tick {t}")
+    launches = {nm: kk.launches for nm, kk in sck.KERNELS.items()}
+    out = {"rooms": ROOMS_MAIN, "shards": MESH_SHARDS, "ticks": MESH_ROOM_TICKS,
+           "tick_ms": {n: s / MESH_ROOM_TICKS * 1e3 for n, s in times.items()},
+           "launches": launches}
+    del plain, sharded, state, s0, w, k
+    free()
+    return out
+
+
+def mesh_worker(pid: int, nproc: int, coord: str) -> int:
+    """One process of (l) 5: join the gloo group, mesh 2 shards of cuda:0
+    a process, one sharded tick of the 65,536-row world; print the
+    checksum and the local tick's."""
+    import torch.distributed as dist
+
+    from noahgameframe_tpu_torch.parallel import collectives as coll
+    from noahgameframe_tpu_torch.parallel.multihost import global_mesh, init_distributed
+    from noahgameframe_tpu_torch.parallel.shard import ShardedKernel
+
+    sck.library()
+    check(init_distributed(coord, nproc, pid, backend="gloo"), "the gloo group joined")
+    mesh = global_mesh(local_devices=[MESH_DEVICE, MESH_DEVICE])
+    w = gw.build_benchmark_world(DIST_N, seed=SEED, device=DEV)
+    k = w.kernel
+    local_new, _ = k._step(k.state)
+    expected = int(local_new.classes["NPC"].i32.to(torch.int64).sum())
+    sk = ShardedKernel(k, mesh=mesh)
+    sk.place()
+    sk.run_device(1)
+    parts = [b.classes["NPC"].i32.to(torch.int64).sum() for b in sk.blocks]
+    checksum = int(coll.psum(mesh, parts)[0])
+    print(json.dumps({"pid": pid, "mesh": mesh.size, "local": len(mesh.local),
+                      "checksum": checksum, "expected": expected,
+                      "bytes_moved": mesh.bytes_moved}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_two_processes():
+    """(l) 5: two processes, a gloo group, 2 shards of cuda:0 each."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, "--mesh-worker", str(i), "2",
+                               f"127.0.0.1:{port}"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=os.path.dirname(here))
+             for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"mesh worker exits 0: {err[-2000:]}")
+            outs.append(json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(o["mesh"] == 4 and o["local"] == 2 for o in outs), f"a global mesh of 4: {outs}")
+    check(outs[0]["checksum"] == outs[1]["checksum"] == outs[0]["expected"]
+          == outs[1]["expected"], f"the two processes' checksums equal the local tick's {outs}")
+    return {"entities": DIST_N, "processes": 2, "backend": "gloo", "workers": outs}
+
+
+def mesh_cpu_cuda():
+    """(l) 6: a 4,096-row world on 4 virtual shards, on cpu and on cuda."""
+    from noahgameframe_tpu_torch.parallel.shard import ShardedKernel
+
+    streams = {}
+    for dev in ("cpu", DEV):
+        w = gw.build_benchmark_world(MESH_PARITY_N, seed=SEED, device=dev)
+        w.kernel.enable_digest()
+        sk = ShardedKernel(w.kernel, mesh=virtual_mesh(MESH_SHARDS, device=dev))
+        sk.place()
+        streams[dev] = [sk.tick().counters["state_digest"] for _ in range(MESH_PARITY_TICKS)]
+    check(streams["cpu"] == streams[DEV], "the sharded 4,096 world's digests equal on cpu "
+                                          "and cuda")
+    return {"entities": MESH_PARITY_N, "ticks": MESH_PARITY_TICKS,
+            "last_digest": streams["cpu"][-1]}
+
+
+def phase_mesh(card: str):
+    """(l): the multi-device layer on one card (virtual meshes of cuda:0).
+    Returns each kernel's launches on the sharded path and the largest
+    difference of a shard's launch from its plain version."""
+    t_phase = time.perf_counter()
+    sub = {}
+    t0 = time.perf_counter()
+    sub["world_1m"], launches, held = mesh_world_1m()
+    emit({"phase": "mesh_world_1m", "card": card, "shards": MESH_SHARDS,
+          "ticks": MESH_TICKS, "seconds": time.perf_counter() - t0, **sub["world_1m"]})
+    for name, fn in (("elastic", mesh_elastic), ("spatial_4m", mesh_spatial),
+                     ("rooms", mesh_rooms), ("two_processes", mesh_two_processes),
+                     ("cpu_cuda", mesh_cpu_cuda)):
+        t0 = time.perf_counter()
+        sub[name] = fn()
+        emit({"phase": f"mesh_{name}", "card": card, "seconds": time.perf_counter() - t0,
+              **sub[name]})
+    emit({"phase": "mesh", "card": card, "seconds": time.perf_counter() - t_phase})
+    return launches, {nm: e for nm, (_c, e) in held.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
+        return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -3649,6 +4120,8 @@ def main() -> int:
     middleware_launches = phase_middleware(card)
     free()
     cluster_launches = phase_cluster(card)
+    free()
+    mesh_launches, mesh_err = phase_mesh(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
@@ -3659,7 +4132,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
          "replaces": sck.KERNELS[name].replaces,
-         "launches": launches[name], "max_abs_err": max(max_err[name], room_err[name]),
+         "launches": launches[name],
+         "max_abs_err": max(max_err[name], room_err[name], mesh_err[name]),
          "ms": timing[name]["ms"], "eager_ms": timing[name]["eager_ms"],
          "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
@@ -3669,6 +4143,7 @@ def main() -> int:
          "served_launches": served_launches[name],
          "middleware_launches": middleware_launches[name],
          "cluster_launches": cluster_launches[name],
+         "sharded_launches": mesh_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

@@ -74,19 +74,24 @@ def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
     return torch.cat([a, b])
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element (int64 values in ``[0, 2^32)``)."""
+def random_bits(key: torch.Tensor, shape: Sequence[int], offset: int = 0) -> torch.Tensor:
+    """32 random bits per element (int64 values in ``[0, 2^32)``).
+    ``offset`` starts the flat counter there: a shard holding rows
+    ``[r0, r0 + rows)`` of a ``[R, C]`` draw takes ``offset=r0 * C`` and
+    gets exactly its slice of the whole draw (the partitionable layout)."""
     n = int(np.prod(shape, dtype=np.int64))
-    count = torch.arange(n, dtype=torch.int64, device=key.device)
+    count = torch.arange(offset, offset + n, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(key[0], key[1], count >> 32, count & MASK32)
     return (b1 ^ b2).reshape(tuple(shape))
 
 
 def uniform(
-    key: torch.Tensor, shape: Sequence[int], minval: float = 0.0, maxval: float = 1.0
+    key: torch.Tensor, shape: Sequence[int], minval: float = 0.0, maxval: float = 1.0,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    bits = random_bits(key, shape)
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``;
+    ``offset`` as in :func:`random_bits`."""
+    bits = random_bits(key, shape, offset)
     # jax: bitcast(0x3F800000 | bits >> 9) - 1.0, a float in [1, 2) minus
     # one; exactly the 23 random bits times 2^-23 (no bit view, so it
     # batches under torch.func.vmap)

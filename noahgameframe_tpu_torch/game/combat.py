@@ -28,6 +28,10 @@ gathers from global memory, and at 1M rows the bank (about 24 MB) sits in
 the H100's 50 MB L2, so it runs at 1M where the JAX package falls back to
 engine 0 for lack of VMEM.  All engines give bit-identical state.
 
+In a sharded tick (parallel/shard.py) the ``aoe`` phase gathers the
+fold's columns from every shard, and each shard bins the whole class and
+launches the engine's fold itself, keeping its own rows' results.
+
 ``verlet_skin`` (else ``NF_VERLET_SKIN``; <= 0 is off) widens the cells to
 ``max(cell_size, radius + skin)`` and gates the binning on displacement;
 the cache rides ``WorldState.aux`` as ``verlet/<class>``, and the tick
@@ -114,7 +118,7 @@ class CombatModule(Module):
         # fraction of the population the attacker table is sized for:
         # arm_all(stagger=True) lowers it to dt/attack_period
         self._attacker_duty = 1.0
-        self.add_phase("aoe", self._combat_phase, order=order)
+        self.add_phase("aoe", self._combat_phase, order=order, mesh_fn=self._combat_mesh)
         self.add_phase("death", self._death_phase, order=order + 5)
 
     # -- lifecycle -----------------------------------------------------------
@@ -232,35 +236,45 @@ class CombatModule(Module):
 
     # -- device phases -------------------------------------------------------
 
-    def _combat_phase(self, state: WorldState, ctx) -> WorldState:
+    def _combat_rows(self, state: WorldState, ctx):
+        """The per-row inputs of the fold for this state's rows (a shard's
+        block on a mesh): the feature columns, the alive and attacking
+        masks, and what the damage step reads."""
         cname = self.class_name
-        store = ctx.store
-        if cname not in store.class_index:
-            return state
-        spec = store.spec(cname)
+        spec = ctx.store.spec(cname)
         cs = state.classes[cname]
-        pos = cs.vec[:, spec.slot("Position").col, :2]
-        hp_col = spec.slot("HP").col
-        hp = cs.i32[:, hp_col]
+        hp = cs.i32[:, spec.slot("HP").col]
         atk = cs.i32[:, spec.slot("ATK_VALUE").col]
-        deff = cs.i32[:, spec.slot("DEF_VALUE").col]
         camp = (cs.i32[:, spec.slot("Camp").col] if spec.has_property("Camp")
                 else torch.zeros_like(hp))
-
         attacking = ctx.fired(cname, ATTACK_TIMER) & cs.alive & (hp > 0)
         if spec.has_property("SKILL_GATE"):
             attacking = attacking & (cs.i32[:, spec.slot("SKILL_GATE").col] == 0)
+        f32 = torch.float32
+        return {
+            "pos": cs.vec[:, spec.slot("Position").col, :2],
+            "alive": cs.alive,
+            "attacking": attacking,
+            "camp_f": camp.to(f32),
+            "scene_f": cs.i32[:, spec.slot("SceneID").col].to(f32),
+            "group_f": cs.i32[:, spec.slot("GroupID").col].to(f32),
+            "eff_atk": torch.where(attacking, atk, 0).to(f32),
+        }
 
+    def _fold(self, rows, cache, ctx):
+        """Bin every row of ``rows`` (the whole class) and run the engine's
+        fold: ``(vic_bin, att_bin, inc, bestr, nbr, cache, rebuilt)``, the
+        folds' per-slot results, and the refreshed Verlet cache (None when
+        the skin is off)."""
+        pos, alive, attacking = rows["pos"], rows["alive"], rows["attacking"]
+        camp_f, scene_f, group_f, eff_atk = (rows["camp_f"], rows["scene_f"],
+                                             rows["group_f"], rows["eff_atk"])
         n = pos.shape[0]
         bucket = self.resolved_bucket(n)
         att_bucket = self.resolved_att_bucket(n)
         engine = self.resolved_engine()
         f32 = torch.float32
-        camp_f = camp.to(f32)
-        scene_f = cs.i32[:, spec.slot("SceneID").col].to(f32)
-        group_f = cs.i32[:, spec.slot("GroupID").col].to(f32)
-        eff_atk = torch.where(attacking, atk, 0).to(f32)
-        nbr = None
+        nbr = rebuilt = None
         # the split tables' features; the fused engine gathers from one
         # bank instead (the attacker row is the gather index)
         vic_feats = att_feats = None
@@ -273,33 +287,29 @@ class CombatModule(Module):
             # displacement-gated binning (ops/verlet.py): the folds mask by
             # the true radius on current positions, so results equal a
             # rebuild every tick
-            cache, rebuilt = refresh(state.aux[self.aux_key], pos, cs.alive, self.cell_size,
+            cache, rebuilt = refresh(cache, pos, alive, self.cell_size,
                                      self.width, bucket, self.verlet_skin)
             n_cells = self.width * self.width
             if engine == 2:
-                vic_bin = slots_from_assignment(cs.alive, cache.slot_of, n_cells,
+                vic_bin = slots_from_assignment(alive, cache.slot_of, n_cells,
                                                 self.cell_size, self.width, bucket)
                 att_bin = slots_from_assignment(
                     attacking, sub_slots(cache, attacking, n_cells, att_bucket), n_cells,
                     self.cell_size, self.width, att_bucket)
             else:
-                vic_bin = full_table(cache, vic_feats, cs.alive, n_cells, self.cell_size,
+                vic_bin = full_table(cache, vic_feats, alive, n_cells, self.cell_size,
                                      self.width, bucket)
                 att_bin = sub_table(cache, attacking, att_feats, n_cells, self.cell_size,
                                     self.width, att_bucket)
-            ctx.count("grid_rebuilds", rebuilt)
-            ctx.count("grid_reuses", 1 - rebuilt)
-            ctx.count("grid_cache_age", cache.age)
-            state = state.replace(aux={**state.aux, self.aux_key: cache})
         elif engine == 2:
             # one key pass feeds both slot assignments, no payloads
             vic_bin, att_bin = build_cell_slots_pair(
-                pos, cs.alive, attacking, self.cell_size, self.width, bucket, att_bucket)
+                pos, alive, attacking, self.cell_size, self.width, bucket, att_bucket)
         else:
             # TWO tables from one key pass: every alive entity is resident
             # as a victim, only this tick's attackers ride the scanned side
             vic_bin, att_bin = build_cell_table_pair(
-                pos, cs.alive, vic_feats, attacking, att_feats,
+                pos, alive, vic_feats, attacking, att_feats,
                 self.cell_size, self.width, bucket, att_bucket)
         if engine == 2:
             bank = torch.stack([pos[:, 0], pos[:, 1], camp_f, scene_f, group_f, eff_atk], -1)
@@ -307,11 +317,92 @@ class CombatModule(Module):
         else:
             fold = combat_fold if engine == 1 else combat_fold_plain
             inc, bestr = fold(vic_bin, att_bin, self.radius)
+        return vic_bin, att_bin, inc, bestr, nbr, cache, rebuilt
+
+    def _combat_phase(self, state: WorldState, ctx) -> WorldState:
+        cname = self.class_name
+        if cname not in ctx.store.class_index:
+            return state
+        rows = self._combat_rows(state, ctx)
+        cache = state.aux[self.aux_key] if self.verlet_skin > 0.0 else None
+        folded = self._fold(rows, cache, ctx)
+        if folded[5] is not None:
+            state = state.replace(aux={**state.aux, self.aux_key: folded[5]})
+        return self._damage(state, ctx, folded, slice(None), first=True)
+
+    def _combat_mesh(self, states, ctxs):
+        """The combat phase of a sharded tick (parallel/shard.py): each
+        shard's feature columns (and the Verlet cache's row blocks) are
+        gathered, every shard bins the whole class and launches the fold
+        itself, and keeps its own rows' results."""
+        from ..parallel import collectives as coll
+
+        cname = self.class_name
+        ctx0 = ctxs[0]
+        if cname not in ctx0.store.class_index:
+            return states
+        mesh = ctx0.shard.mesh
+        if not ctx0.shard.is_rows(cname):
+            # a replicated class: every shard steps the whole of it
+            return [self._combat_phase(st, c) for st, c in zip(states, ctxs)]
+        local = [self._combat_rows(st, c) for st, c in zip(states, ctxs)]
+        # one [rows, 9] float block per shard: every int column is exact
+        # below 2^24, and the masks ride as 0/1
+        f32 = torch.float32
+        cols = [torch.stack([r["pos"][:, 0], r["pos"][:, 1], r["camp_f"], r["scene_f"],
+                             r["group_f"], r["eff_atk"], r["alive"].to(f32),
+                             r["attacking"].to(f32)], -1) for r in local]
+        gathered = coll.all_gather(mesh, cols)
+        caches = [None] * len(states)
+        if self.verlet_skin > 0.0:
+            row_leaves = ("anchor_pos", "anchor_active", "order", "skey", "slot_of")
+            per = {f: coll.all_gather(mesh, [st.aux[self.aux_key]._asdict()[f]
+                                             for st in states]) for f in row_leaves}
+            caches = [states[i].aux[self.aux_key]._replace(
+                **{f: per[f][i] for f in row_leaves}) for i in range(len(states))]
+        out = []
+        for i, (st, c) in enumerate(zip(states, ctxs)):
+            g = gathered[i]
+            rows = {"pos": g[:, 0:2], "camp_f": g[:, 2], "scene_f": g[:, 3],
+                    "group_f": g[:, 4], "eff_atk": g[:, 5], "alive": g[:, 6] > 0,
+                    "attacking": g[:, 7] > 0}
+            folded = self._fold(rows, caches[i], c)
+            n_loc = st.classes[cname].alive.shape[0]
+            lo = c.shard.row_offset(cname)
+            cache = folded[5]
+            if cache is not None:
+                cache = cache._replace(**{f: getattr(cache, f)[lo:lo + n_loc]
+                                          for f in ("anchor_pos", "anchor_active", "order",
+                                                    "skey", "slot_of")})
+                st = st.replace(aux={**st.aux, self.aux_key: cache})
+            out.append(self._damage(st, c, folded, slice(lo, lo + n_loc),
+                                    first=c.shard.index == 0))
+        return out
+
+    def _damage(self, state: WorldState, ctx, folded, own: slice, first: bool) -> WorldState:
+        """Apply the fold's results to this state's rows (``own``: their
+        slice of the whole class); ``first`` marks the block holding row 0,
+        which carries the overflow event's flag."""
+        cname = self.class_name
+        store = ctx.store
+        spec = store.spec(cname)
+        cs = state.classes[cname]
+        vic_bin, att_bin, inc, bestr, nbr, cache, rebuilt = folded
+        n = cs.alive.shape[0]
+        hp_col = spec.slot("HP").col
+        hp = cs.i32[:, hp_col]
+        deff = cs.i32[:, spec.slot("DEF_VALUE").col]
+        if rebuilt is not None:
+            ctx.count("grid_rebuilds", rebuilt)
+            ctx.count("grid_reuses", 1 - rebuilt)
+            ctx.count("grid_cache_age", cache.age)
         if self.emit_events:
             # row 0 carries the overflow flag; padded out of place, so it
             # batches under torch.func.vmap
-            mask0 = torch.nn.functional.pad(
-                ((vic_bin.dropped + att_bin.dropped) > 0).reshape(1), (0, n - 1))
+            flag = ((vic_bin.dropped + att_bin.dropped) > 0).reshape(1)
+            if not first:
+                flag = torch.zeros_like(flag)
+            mask0 = torch.nn.functional.pad(flag, (0, n - 1))
             ctx.emit(
                 int(GameEvent.ON_COMBAT_TABLE_OVERFLOW), cname, mask0,
                 dropped_victims=vic_bin.dropped.expand(n),
@@ -319,11 +410,12 @@ class CombatModule(Module):
             )
         ctx.count("aoi_victim_overflow_drops", vic_bin.dropped)
         ctx.count("aoi_attacker_overflow_drops", att_bin.dropped)
-        pulled = pull_slots(vic_bin.slot_of, torch.stack([inc, bestr], dim=-1), fill=(0, -1))
+        slot_of = vic_bin.slot_of[own]
+        pulled = pull_slots(slot_of, torch.stack([inc, bestr], dim=-1), fill=(0, -1))
         if nbr is not None:
             # the AOI occupancy count is a counter, not state, so digests
             # stay bit-identical across engines
-            ctx.count("aoi_interest_pairs", pull_slots(vic_bin.slot_of, nbr, fill=0))
+            ctx.count("aoi_interest_pairs", pull_slots(slot_of, nbr, fill=0))
         # dead-but-not-yet-respawned victims take no damage
         incoming = torch.where(cs.alive & (hp > 0), pulled[:, 0], 0)
         dmg = torch.clamp(incoming - deff, min=0)

@@ -61,7 +61,9 @@ class MovementModule(Module):
         arrived = dist <= torch.clamp(step, min=float(np.float32(1e-6)))
         # fresh uniform target for arrived walkers (dead/rooted ones have
         # step 0 and never "arrive" once a target is outstanding)
-        new_tgt = uniform(ctx.rng(), (pos.shape[0], 2), 0.0, self.extent)
+        # a shard draws its own rows' slice of the whole draw
+        new_tgt = uniform(ctx.rng(), (pos.shape[0], 2), 0.0, self.extent,
+                          offset=ctx.row_offset(cname) * 2)
         tgt = torch.where((arrived & cs.alive)[:, None], new_tgt, tgt)
         # pos + where(arrived, delta, delta/dist*step): the reference fuses
         # the walking arm into fma(delta/dist, step, pos)

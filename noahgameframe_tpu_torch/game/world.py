@@ -18,7 +18,7 @@ recompute) at ~0.4 NPCs per world unit², the world ``bench.py`` times.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -76,6 +76,12 @@ class WorldConfig:
     # NF_VERLET_SKIN knob, <= 0 disables (rebuild every tick)
     verlet_skin: Optional[float] = None
     middleware: bool = True  # items/hero/task/buff/social/SLG stack
+    # full-row cross-shard migration (parallel/rowmigrate.py
+    # SpatialPlacement); None keeps rows where they are
+    placement: Optional[object] = None
+    # the mesh the placement's migrate phase runs over; None means
+    # make_mesh(placement.n_shards), one card a shard
+    mesh: Optional[object] = None
     # private is included so owner-only state reaches its own client
     diff_flags: tuple = ("public", "private", "upload")
 
@@ -157,12 +163,21 @@ class GameWorld:
                 verlet_skin=cfg.verlet_skin,
             )
         self.regen = RegenModule(period_s=cfg.regen_period_s) if cfg.regen else None
+        self.migration = None
+        if cfg.placement is not None:
+            from ..parallel.rowmigrate import RowMigrationModule
+
+            self.migration = RowMigrationModule(cfg.placement, mesh=cfg.mesh)
+        # the elastic mesh surface (parallel/elastic.py), set by shard()
+        self.sharded = None
+        self.elastic = None
         # registry, tracer, census and the kernel's cost book; attached to
         # the kernel in after_init
         self.telemetry = TelemetryModule()
         server = [m for m in (self.scene, self.scene_process, self.components,
                               self.properties, self.level, self.skills, *middleware,
-                              self.movement, self.combat, self.regen, self.telemetry)
+                              self.movement, self.combat, self.regen, self.migration,
+                              self.telemetry)
                   if m is not None]
         self._rng = np.random.default_rng(cfg.seed)
         self.pm = PluginManager(app_name="game")
@@ -184,6 +199,37 @@ class GameWorld:
         (teams, guilds, mail, ranks, buff defs) survives a resume."""
         return list(self.pm.modules.values())
 
+    def shard(self, n_devices: Optional[int] = None, mesh=None,
+              ident_cols: Optional[Dict[str, int]] = None,
+              exodus_tick_bound: int = 256, autoscaler=None):
+        """Place the built world onto a device mesh and attach the elastic
+        grow/drain controller; returns the
+        :class:`~..parallel.elastic.ElasticMesh`.  With a placement, the
+        mesh defaults to the migration module's (the migrate phase runs
+        over the mesh the rows live on); another width retargets it."""
+        from ..parallel.elastic import ElasticMesh
+        from ..parallel.mesh import make_mesh
+        from ..parallel.shard import ShardedKernel
+
+        if mesh is None:
+            if n_devices is None and self.migration is not None:
+                mesh = self.migration.mesh
+            elif self.migration is not None and n_devices == self.migration.mesh.size:
+                mesh = self.migration.mesh
+            else:
+                mesh = make_mesh(n_devices)
+        if self.migration is not None and mesh != self.migration.mesh:
+            self.migration.retarget(
+                placement=dataclasses.replace(self.migration.placement, n_shards=mesh.size),
+                mesh=mesh)
+        self.sharded = ShardedKernel(self.kernel, mesh=mesh)
+        self.sharded.place()
+        self.elastic = ElasticMesh(
+            self.sharded, migration=self.migration, registry=self.telemetry.registry,
+            ident_cols=ident_cols, exodus_tick_bound=exodus_tick_bound,
+            autoscaler=autoscaler)
+        return self.elastic
+
     def save(self, path) -> dict:
         """Checkpoint the world into the directory ``path`` (see
         persist.checkpoint.save_world, whose timing split it returns)."""
@@ -192,7 +238,12 @@ class GameWorld:
     def load(self, path) -> dict:
         """Restore a checkpoint saved by either package into this world
         (see persist.checkpoint.load_world, whose timing split it returns)."""
-        return load_world(self.kernel, path, modules=self.all_modules)
+        out = load_world(self.kernel, path, modules=self.all_modules)
+        if self.sharded is not None:
+            # a snapshot from a mesh of any width: re-place the restored
+            # state on the CURRENT mesh, every cache dropped
+            self.sharded.reshard(cause="snapshot_load")
+        return out
 
     # -- seeding --------------------------------------------------------------
 

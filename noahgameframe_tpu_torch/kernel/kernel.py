@@ -30,7 +30,9 @@ The entry points dispatch through the kernel's :class:`CostBook`:
 Anything the step closes over on the host (a bucket, an engine, the
 digest, K) is part of each capture's key, and :meth:`invalidate` drops
 every captured graph and the registered aux entries, as the JAX package
-drops its compiled tick.
+drops its compiled tick.  Once a ``ShardedKernel`` (parallel/shard.py)
+has placed the world on a mesh, the three entry points run its sharded
+step, and ``state`` reads the shards' blocks back as one state.
 
 The host control plane is the JAX package's: ``create_object`` runs the
 seven-event create chain, ``destroy_object`` fires BEFORE_DESTROY and
@@ -200,7 +202,7 @@ class TickCtx:
     """Per-tick context handed to device phases."""
 
     def __init__(self, kernel: "Kernel", tick: torch.Tensor, rng: torch.Tensor,
-                 fired_masks: Dict[str, torch.Tensor]):
+                 fired_masks: Dict[str, torch.Tensor], shard=None):
         self.kernel = kernel
         self.store = kernel.store
         self.tick = tick
@@ -212,11 +214,28 @@ class TickCtx:
         # named int32 0-dim tensors accumulated across phases; the kernel
         # packs them into the per-tick summary (counter bank)
         self._counters: Dict[str, torch.Tensor] = {}
+        # counters given as a 0-dim value (the same on every shard of a
+        # sharded tick, which keeps one) rather than summed over rows
+        self._counter_scalar: set = set()
+        # the shard this ctx steps in a sharded tick (parallel/shard.py
+        # ShardInfo: mesh, index, row offsets), None on one device
+        self.shard = shard
+
+    def row_offset(self, class_name: str) -> int:
+        """The global row index of this ctx's first row of ``class_name``:
+        0 on one device and for a class a sharded tick replicates."""
+        return 0 if self.shard is None else self.shard.row_offset(class_name)
 
     def fired(self, class_name: str, timer_name: str) -> torch.Tensor:
         """[C] bool — which entities' `timer_name` fired this tick."""
         slot = self.kernel.schedule.slot(class_name, timer_name)
         return self._fired[class_name][:, slot]
+
+    def remap_fired(self, class_name: str, fired: torch.Tensor) -> None:
+        """Republish a class's ``[C, T]`` fired mask after a phase moved its
+        rows (cross-shard migration): the schedule computed the masks
+        before the phases ran, and a fire must move with its row."""
+        self._fired[class_name] = fired
 
     def rng(self) -> torch.Tensor:
         """A fresh PRNG key (deterministic per tick + call position)."""
@@ -233,7 +252,12 @@ class TickCtx:
         vectors are summed to one int32 scalar."""
         v = value if isinstance(value, torch.Tensor) else torch.full(
             (), int(value), dtype=torch.int32, device=self.tick.device)
-        v = torch.sum(v, dtype=torch.int32) if v.dim() else v.to(torch.int32)
+        if v.dim():
+            # a per-row value: a shard's part of the sum over all rows
+            v = torch.sum(v, dtype=torch.int32)
+        else:
+            self._counter_scalar.add(name)
+            v = v.to(torch.int32)
         prev = self._counters.get(name)
         self._counters[name] = v if prev is None else prev + v
 
@@ -284,7 +308,11 @@ class Kernel(Module):
         self._class_names = class_names
         self._diff_flags = diff_flags
         self.store: Optional[EntityStore] = None
-        self.state: Optional[WorldState] = None
+        # the ShardedKernel (parallel/shard.py) holding this world's rows
+        # as per-shard blocks, or None; while set, ``state`` is assembled
+        # from the blocks on read and written back to them lazily
+        self.sharded = None
+        self._state: Optional[WorldState] = None
         self._composed: List[Phase] = []
         self._modules: List[Module] = []
         self._diff_cols: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -330,6 +358,21 @@ class Kernel(Module):
         self.stage_timing = False
         # observed ticks as a CUDA graph (set_graph_tick); off by default
         self.graph_tick = False
+
+    @property
+    def state(self) -> Optional[WorldState]:
+        """The whole world state.  On a mesh (``sharded`` set) the blocks
+        hold the newest rows after a sharded step, and reading assembles
+        them first."""
+        if self.sharded is not None:
+            self.sharded.sync_host()
+        return self._state
+
+    @state.setter
+    def state(self, value: Optional[WorldState]) -> None:
+        self._state = value
+        if self.sharded is not None:
+            self.sharded.host_wrote()
 
     # -- build --------------------------------------------------------------
 
@@ -468,83 +511,27 @@ class Kernel(Module):
         ``state_digest`` lane 0 for the caller to fill (the rooms engine
         digests all rooms at once, outside its vmapped step)."""
         old = state
-        fired: Dict[str, torch.Tensor] = {}
-        new_classes = {}
-        with _annotate("nf.schedule"):
-            for cname in self.store.class_order:
-                cs, f = self.schedule.advance_class(state.classes[cname], state.tick)
-                new_classes[cname] = cs
-                fired[cname] = f
-            state = state.replace(classes=new_classes)
-
-        rng = fold_in(state.rng, state.tick)
-        ctx = TickCtx(self, state.tick, rng, fired)
+        state, ctx = self._begin_step(state)
         for phase in self._composed:
             with _annotate(f"nf.phase.{phase.name}"):
                 state = phase.fn(state, ctx)
         state = state.replace(tick=state.tick + 1)
         if not observe:
             return state, None
-
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        diff: Dict[str, Dict[str, torch.Tensor]] = {}
-        diff_count: Dict[str, torch.Tensor] = {}
-        rec_diff: Dict[str, Dict[str, torch.Tensor]] = {}
-        rec_diff_count: Dict[str, torch.Tensor] = {}
-        died: Dict[str, torch.Tensor] = {}
-        died_count: Dict[str, torch.Tensor] = {}
         with _annotate("nf.diff"):
-            for cname in self.store.class_order:
-                oc, nc = old.classes[cname], state.classes[cname]
-                masks = {}
-                total = zero
-                for bank, cols in self._diff_cols[cname].items():
-                    ob, nb = getattr(oc, bank), getattr(nc, bank)
-                    ne = ob != nb
-                    if bank == "vec":
-                        ne = ne.any(dim=-1)
-                    m = ne & nc.alive[:, None] & cols[None, :]
-                    masks[bank] = m
-                    total = total + torch.sum(m, dtype=torch.int32)
-                if masks:
-                    diff[cname] = masks
-                    diff_count[cname] = total
-                codes = self._record_codes(cname, oc, nc)
-                if codes:
-                    rec_diff[cname] = codes
-                    rec_diff_count[cname] = sum(
-                        (torch.sum(c != 0, dtype=torch.int32) for c in codes.values()), zero)
-                d = oc.alive & ~nc.alive
-                died[cname] = d
-                died_count[cname] = torch.sum(d, dtype=torch.int32)
-
-        self._event_meta = [(e.event_id, e.class_name, tuple(e.params)) for e in ctx.emitted]
+            lanes = self._class_lanes(old, state)
+        diff, diff_count, rec_diff, rec_diff_count, died, died_count = lanes
         ev_counts = [torch.sum(e.mask, dtype=torch.int32) for e in ctx.emitted]
         counters = dict(ctx._counters)
-        counters["deaths"] = sum(died_count.values(), zero)
-        counters["diff_cells"] = sum(diff_count.values(), zero)
-        counters["rec_diff_cells"] = sum(rec_diff_count.values(), zero)
-        counters["events_fired"] = sum(ev_counts, zero)
-        counters["tick"] = state.tick
         if self.digest_enabled:
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
             counters["state_digest"] = _as_int32(
                 state_digest(state, self.store.class_order)
             ) if digest_in_step else zero
-        self._counter_names = tuple(sorted(counters))
-        self._summary_len = (len(self.store.class_order) + len(diff_count)
-                             + len(rec_diff_count) + len(ev_counts) + len(self._counter_names))
-        # ONE packed int32 vector per tick: deaths per class, diff cells per
-        # class (sorted), record-diff cells per class (sorted), event
-        # counts, then the counter bank in name order
-        summary = torch.stack(
-            [died_count[c] for c in self.store.class_order]
-            + [diff_count[c] for c in sorted(diff_count)]
-            + [rec_diff_count[c] for c in sorted(rec_diff_count)]
-            + ev_counts
-            + [counters[k].to(torch.int32) for k in self._counter_names]
-        )
+        summary = self._pack_summary(ctx, state.tick, died_count, diff_count,
+                                     rec_diff_count, ev_counts, counters)
         raw = {
-            "fired": fired,
+            "fired": ctx._fired,
             "diff": diff,
             "diff_count": diff_count,
             "rec_diff": rec_diff,
@@ -555,6 +542,80 @@ class Kernel(Module):
             "summary": summary,
         }
         return state, raw
+
+    def _begin_step(self, state: WorldState, shard=None) -> Tuple[WorldState, "TickCtx"]:
+        """The schedule advance and the tick's context (``shard``: the
+        ShardInfo of one shard of a sharded tick)."""
+        fired: Dict[str, torch.Tensor] = {}
+        new_classes = {}
+        with _annotate("nf.schedule"):
+            for cname in self.store.class_order:
+                cs, f = self.schedule.advance_class(state.classes[cname], state.tick)
+                new_classes[cname] = cs
+                fired[cname] = f
+            state = state.replace(classes=new_classes)
+        rng = fold_in(state.rng, state.tick)
+        return state, TickCtx(self, state.tick, rng, fired, shard)
+
+    def _class_lanes(self, old: WorldState, state: WorldState):
+        """Per class: the flag-masked diff masks and their cell count, the
+        record-diff codes and count, and the died mask and count."""
+        zero = torch.zeros((), dtype=torch.int32, device=state.tick.device)
+        diff: Dict[str, Dict[str, torch.Tensor]] = {}
+        diff_count: Dict[str, torch.Tensor] = {}
+        rec_diff: Dict[str, Dict[str, torch.Tensor]] = {}
+        rec_diff_count: Dict[str, torch.Tensor] = {}
+        died: Dict[str, torch.Tensor] = {}
+        died_count: Dict[str, torch.Tensor] = {}
+        for cname in self.store.class_order:
+            oc, nc = old.classes[cname], state.classes[cname]
+            masks = {}
+            total = zero
+            for bank, cols in self._diff_cols[cname].items():
+                ob, nb = getattr(oc, bank), getattr(nc, bank)
+                ne = ob != nb
+                if bank == "vec":
+                    ne = ne.any(dim=-1)
+                m = ne & nc.alive[:, None] & cols.to(nb.device)[None, :]
+                masks[bank] = m
+                total = total + torch.sum(m, dtype=torch.int32)
+            if masks:
+                diff[cname] = masks
+                diff_count[cname] = total
+            codes = self._record_codes(cname, oc, nc)
+            if codes:
+                rec_diff[cname] = codes
+                rec_diff_count[cname] = sum(
+                    (torch.sum(c != 0, dtype=torch.int32) for c in codes.values()), zero)
+            d = oc.alive & ~nc.alive
+            died[cname] = d
+            died_count[cname] = torch.sum(d, dtype=torch.int32)
+        return diff, diff_count, rec_diff, rec_diff_count, died, died_count
+
+    def _pack_summary(self, ctx: "TickCtx", tick: torch.Tensor, died_count, diff_count,
+                      rec_diff_count, ev_counts, counters) -> torch.Tensor:
+        """The kernel's own counters added to ``counters``, the host
+        metadata of the tick recorded, and the ONE packed int32 vector:
+        deaths per class, diff cells per class (sorted), record-diff cells
+        per class (sorted), event counts, then the counter bank in name
+        order."""
+        zero = torch.zeros((), dtype=torch.int32, device=tick.device)
+        self._event_meta = [(e.event_id, e.class_name, tuple(e.params)) for e in ctx.emitted]
+        counters["deaths"] = sum(died_count.values(), zero)
+        counters["diff_cells"] = sum(diff_count.values(), zero)
+        counters["rec_diff_cells"] = sum(rec_diff_count.values(), zero)
+        counters["events_fired"] = sum(ev_counts, zero)
+        counters["tick"] = tick
+        self._counter_names = tuple(sorted(counters))
+        self._summary_len = (len(self.store.class_order) + len(diff_count)
+                             + len(rec_diff_count) + len(ev_counts) + len(self._counter_names))
+        return torch.stack(
+            [died_count[c] for c in self.store.class_order]
+            + [diff_count[c] for c in sorted(diff_count)]
+            + [rec_diff_count[c] for c in sorted(rec_diff_count)]
+            + list(ev_counts)
+            + [counters[k].to(torch.int32) for k in self._counter_names]
+        )
 
     def _record_codes(self, cname: str, oc, nc) -> Dict[str, torch.Tensor]:
         """The ``[C, R]`` int8 row-change codes of each subscribed record of
@@ -590,7 +651,10 @@ class Kernel(Module):
 
     def tick_begin(self) -> Dict[str, object]:
         """Run one observed step and return its raw lanes without fetching
-        anything (the device may still be running it)."""
+        anything (the device may still be running it).  On a mesh the
+        step is the sharded one (parallel/shard.py)."""
+        if self.sharded is not None:
+            return self.sharded.tick_begin()
         self.compile()
         self._ensure_aux()
         with self._span("kernel.dispatch"):
@@ -649,6 +713,8 @@ class Kernel(Module):
         state's banks are then updated in place.  ``graph=False`` runs the
         eager loop of functional steps; on the CPU that is the only way."""
         n = int(n)
+        if self.sharded is not None:
+            return self.sharded.run_device(n, reconcile=reconcile)
         use_graph = self.device.type == "cuda" if graph is None else bool(graph)
         if use_graph and self.device.type != "cuda":
             raise ValueError("run_device(graph=True) needs a CUDA device")
@@ -717,7 +783,10 @@ class Kernel(Module):
                 statics=self._train_statics, graph=True, launch_counters=KERNELS)
 
     def train_begin(self) -> Dict[str, object]:
-        """Dispatch one K-tick train (one graph replay on a card)."""
+        """Dispatch one K-tick train (one graph replay on a card; the
+        sharded train on a mesh)."""
+        if self.sharded is not None:
+            return self.sharded.train_begin()
         self.compile_train()
         self._ensure_aux()
         with self._span("kernel.dispatch"):

@@ -28,11 +28,20 @@ if TYPE_CHECKING:
 PhaseFn = Callable[["WorldState", "TickCtx"], "WorldState"]
 
 
+# the same phase over a sharded world: the list of every local shard's
+# block state and its TickCtx (``ctx.shard`` set), returning the new
+# blocks (parallel/shard.py runs it; it may call parallel/collectives)
+MeshPhaseFn = Callable[[List["WorldState"], List["TickCtx"]], List["WorldState"]]
+
+
 @dataclasses.dataclass(frozen=True)
 class Phase:
     name: str
     fn: PhaseFn
     order: int = 100
+    # None: the phase is row-local, and a sharded tick runs ``fn`` once
+    # per shard on that shard's blocks
+    mesh_fn: Optional[MeshPhaseFn] = None
 
 
 class Module:
@@ -89,8 +98,9 @@ class Module:
 
     # -- device phase registration ------------------------------------------
 
-    def add_phase(self, name: str, fn: PhaseFn, order: int = 100) -> None:
-        self._phases.append(Phase(f"{self.name}.{name}", fn, order))
+    def add_phase(self, name: str, fn: PhaseFn, order: int = 100,
+                  mesh_fn: Optional[MeshPhaseFn] = None) -> None:
+        self._phases.append(Phase(f"{self.name}.{name}", fn, order, mesh_fn))
 
     @property
     def phases(self) -> List[Phase]:

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Callable, NamedTuple, Tuple, TypeVar
+from typing import Callable, NamedTuple, Optional, Tuple, TypeVar
 
 import torch
 import torch.nn.functional as F
@@ -93,11 +93,15 @@ class CellTable(NamedTuple):
     width: int
     cell_size: float
     bucket: int
+    # rows of a rectangular [height, width] grid (the spatial preset's
+    # slabs); -1 means square
+    height: int = -1
 
     def grid_view(self) -> torch.Tensor:
         """[H, W, K, F+1] dense view (dump slot excluded)."""
+        h = self.height if self.height > 0 else self.width
         w, k = self.width, self.bucket
-        return self.payload[:-1].reshape(w, w, k, self.payload.shape[-1])
+        return self.payload[:-1].reshape(h, w, k, self.payload.shape[-1])
 
 
 def auto_bucket(
@@ -112,23 +116,31 @@ def auto_bucket(
     return -(-k // align) * align
 
 
-def _cell_keys(pos, active, cell_size: float, width: int):
-    """Per-row sort key: cell id, or n_cells for inactive rows."""
+def _cell_keys(pos, active, cell_size: float, width: int, cell=None,
+               n_cells: Optional[int] = None):
+    """Per-row sort key: cell id, or n_cells for inactive rows.  ``cell``
+    and ``n_cells``: precomputed cell ids over a caller's (possibly
+    rectangular) grid, the spatial preset's slab-local ids."""
     n = pos.shape[0]
     if n >= 1 << 24:
         # row ids ride in f32 payload columns, exact only below 2^24
         raise ValueError(f"cell table capacity {n} >= 2^24 breaks f32 row ids")
-    n_cells = width * width
-    key = torch.where(active, cell_of(pos, cell_size, width), n_cells)
+    if cell is None:
+        n_cells = width * width
+        cell = cell_of(pos, cell_size, width)
+    elif n_cells is None:
+        raise ValueError("precomputed cell ids need n_cells")
+    key = torch.where(active, cell, n_cells)
     return n_cells, key
 
 
-def _sorted_segments(pos, active, cell_size: float, width: int):
+def _sorted_segments(pos, active, cell_size: float, width: int, cell=None,
+                     n_cells: Optional[int] = None):
     """The one stable argsort by cell id plus per-element segment ranks.
     Returns (n_cells, order, skey, head, rank): ``head`` is the sorted
     index of each element's segment head."""
     n = pos.shape[0]
-    n_cells, key = _cell_keys(pos, active, cell_size, width)
+    n_cells, key = _cell_keys(pos, active, cell_size, width, cell, n_cells)
     order = torch.argsort(key, stable=True)  # row order kept within a cell
     skey = key[order]
     # the segment head is the first occurrence of the element's key: a
@@ -175,7 +187,7 @@ def slots_from_assignment(active, slot_of, n_cells: int, cell_size: float,
 
 
 def table_from_slots(features, active, slot_of, n_cells: int, cell_size: float,
-                     width: int, bucket: int) -> CellTable:
+                     width: int, bucket: int, height: int = -1) -> CellTable:
     """Materialize a CellTable from a slot assignment: one payload scatter
     (unique slots for placed rows), dump-slot zeroing, drop count."""
     n = features.shape[0]
@@ -190,7 +202,7 @@ def table_from_slots(features, active, slot_of, n_cells: int, cell_size: float,
     # the dump slot may have been written by any loser; force it empty
     payload[dump] = 0.0
     return CellTable(payload, slot_of, _dropped(active, slot_of, dump),
-                     width, cell_size, bucket)
+                     width, cell_size, bucket, height)
 
 
 def _cell_counts(key: torch.Tensor, n_cells: int) -> torch.Tensor:
@@ -232,15 +244,17 @@ def _counting_slots(key: torch.Tensor, n_cells: int, bucket: int) -> torch.Tenso
 
 
 def _pair_slots(pos, active, sub_mask, cell_size: float, width: int, bucket: int,
-                sub_bucket: int):
+                sub_bucket: int, cell=None, height: int = -1):
     """The two slot assignments (full population, subset) under the
     ``NF_BINNING`` engine: ``(n_cells, slot_of, sub_slot_of)``."""
+    n_cells = (height if height > 0 else width) * width if cell is not None else None
     if binning_mode() == "count":
-        n_cells, key = _cell_keys(pos, active, cell_size, width)
+        n_cells, key = _cell_keys(pos, active, cell_size, width, cell, n_cells)
         sub_key = torch.where(sub_mask, key, n_cells)
         return (n_cells, _counting_slots(key, n_cells, bucket),
                 _counting_slots(sub_key, n_cells, sub_bucket))
-    n_cells, order, skey, head, rank = _sorted_segments(pos, active, cell_size, width)
+    n_cells, order, skey, head, rank = _sorted_segments(pos, active, cell_size, width,
+                                                        cell, n_cells)
     sub_rank = _subset_ranks(sub_mask, order, head, n_cells, sub_bucket)
     return (n_cells, _slots_from_ranks(n_cells, order, skey, rank, bucket),
             _slots_from_ranks(n_cells, order, skey, sub_rank, sub_bucket))
@@ -262,18 +276,21 @@ def build_cell_table(pos, active, features, cell_size: float, width: int,
 def build_cell_table_pair(
     pos, active, features, sub_mask, sub_features,
     cell_size: float, width: int, bucket: int, sub_bucket: int,
+    cell=None, height: int = -1,
 ) -> Tuple[CellTable, CellTable]:
     """The full table AND a subset table from one key pass.  Under
     ``sort`` both come from one stable argsort (the subset ranks by a
     segmented cumsum over the shared order); under ``count`` each table
     runs its own scatter-min rounds, the subset over its own keys.
     ``sub_mask`` must be a subset of ``active`` (combat: attackers among
-    all alive entities)."""
+    all alive entities).  ``cell``/``height``: precomputed cell ids over a
+    rectangular ``[height, width]`` grid (the spatial preset's slabs)."""
     n_cells, slot_of, sub_slot_of = _pair_slots(
-        pos, active, sub_mask, cell_size, width, bucket, sub_bucket)
-    return (table_from_slots(features, active, slot_of, n_cells, cell_size, width, bucket),
+        pos, active, sub_mask, cell_size, width, bucket, sub_bucket, cell, height)
+    return (table_from_slots(features, active, slot_of, n_cells, cell_size, width, bucket,
+                             height),
             table_from_slots(sub_features, sub_mask, sub_slot_of, n_cells, cell_size,
-                             width, sub_bucket))
+                             width, sub_bucket, height))
 
 
 def build_cell_slots_pair(

@@ -25,7 +25,7 @@ cache is reused: the cache changes which slots are used, not the work.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,22 +121,37 @@ def need_rebuild(cache: VerletCache, pos: torch.Tensor, active: torch.Tensor,
 
 def refresh(cache: VerletCache, pos: torch.Tensor, active: torch.Tensor,
             cell_size: float, width: int, bucket: int,
-            skin: float) -> Tuple[VerletCache, torch.Tensor]:
+            skin: float, *, cell=None, n_cells: Optional[int] = None,
+            axis_name=None) -> Tuple[VerletCache, torch.Tensor]:
     """The gated build: ``(cache valid this tick, rebuilt as int32 0-dim)``.
     The rebuild re-bins under ``NF_BINNING`` and re-anchors at today's
-    positions; the reuse keeps the cached arrays and bumps the age."""
+    positions; the reuse keeps the cached arrays and bumps the age.
+
+    ``cell``/``n_cells``: precomputed cell ids over a rectangular grid
+    (the spatial preset's slab-local ids), derived from the same
+    positions.  ``axis_name``: on a mesh the shards must rebuild
+    together, or their carried caches drift apart, so the trigger is
+    ``pmax``'d over the mesh.  The JAX package names the ``shard_map``
+    axis and reduces inside the body; a port shard body runs between
+    collectives, so it passes the reduced vote itself (a 0-dim bool, the
+    shards' triggers ``pmax``'d: :func:`mesh_refresh` does both)."""
+    if n_cells is None:
+        if cell is not None:
+            raise ValueError("precomputed cell ids need n_cells")
+        n_cells = width * width
     n = pos.shape[0]
-    trig = need_rebuild(cache, pos, active, skin)
+    trig = need_rebuild(cache, pos, active, skin) if axis_name is None else axis_name
     mode = binning_mode()
 
     def rebuild() -> VerletCache:
         if mode == "count":
-            n_cells, key = _cell_keys(pos, active, cell_size, width)
+            _nc, key = _cell_keys(pos, active, cell_size, width, cell, n_cells)
             order = torch.arange(n, dtype=torch.int32, device=pos.device)
             skey = key
             slot_of = _counting_slots(key, n_cells, bucket)
         else:
-            n_cells, order, skey, _head, rank = _sorted_segments(pos, active, cell_size, width)
+            _nc, order, skey, _head, rank = _sorted_segments(pos, active, cell_size, width,
+                                                             cell, n_cells)
             slot_of = _slots_from_ranks(n_cells, order, skey, rank, bucket)
         return VerletCache(
             # copies: a cache leaf never aliases a bank of the state
@@ -154,11 +169,26 @@ def refresh(cache: VerletCache, pos: torch.Tensor, active: torch.Tensor,
     return new, trig.to(torch.int32)
 
 
+def mesh_refresh(mesh, caches, poss, actives, cell_size: float, width: int, bucket: int,
+                 skin: float, *, cells, n_cells: int):
+    """:func:`refresh` on every local shard of ``mesh`` with the rebuild
+    vote ``pmax``'d over all shards (parallel/collectives.py): lists in,
+    a list of ``(cache, rebuilt)`` out."""
+    from ..parallel import collectives as coll
+
+    votes = [need_rebuild(c, p, a, skin).to(torch.int32)
+             for c, p, a in zip(caches, poss, actives)]
+    votes = coll.pmax(mesh, votes)
+    return [refresh(c, p, a, cell_size, width, bucket, skin, cell=cl, n_cells=n_cells,
+                    axis_name=v > 0)
+            for c, p, a, cl, v in zip(caches, poss, actives, cells, votes)]
+
+
 def full_table(cache: VerletCache, features, active, n_cells: int, cell_size: float,
-               width: int, bucket: int) -> CellTable:
+               width: int, bucket: int, height: int = -1) -> CellTable:
     """The full-population table through the cached slot assignment."""
     return table_from_slots(features, active, cache.slot_of, n_cells, cell_size, width,
-                            bucket)
+                            bucket, height)
 
 
 def sub_slots(cache: VerletCache, sub_mask, n_cells: int, sub_bucket: int) -> torch.Tensor:
@@ -175,8 +205,8 @@ def sub_slots(cache: VerletCache, sub_mask, n_cells: int, sub_bucket: int) -> to
 
 
 def sub_table(cache: VerletCache, sub_mask, sub_features, n_cells: int, cell_size: float,
-              width: int, sub_bucket: int) -> CellTable:
+              width: int, sub_bucket: int, height: int = -1) -> CellTable:
     """A subset table (this tick's attackers) through the cached binning."""
     return table_from_slots(sub_features, sub_mask,
                             sub_slots(cache, sub_mask, n_cells, sub_bucket),
-                            n_cells, cell_size, width, sub_bucket)
+                            n_cells, cell_size, width, sub_bucket, height)

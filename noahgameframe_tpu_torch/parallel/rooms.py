@@ -32,10 +32,14 @@ carrying the room's positional digest.  ``ROOM_PACK_SPEC`` is the
 explicit enumeration of what "a room" is; ``WorldState.aux`` (the Verlet
 caches) is excluded and rebuilt by the next tick.
 
-Not ported here: the ``mesh`` argument (rooms spread over several cards)
-and ``room_digest(ident_cols=...)`` (rows permuted by mesh migration) wait
-for the multi-device slice (ROADMAP.md section 1, Multi-device) and
-raise ``NotImplementedError``.
+On a mesh (``RoomBatch(mesh=...)``, parallel/mesh.py) the room axis is
+block-partitioned: shard d holds slots ``[d*R/D, (d+1)*R/D)`` as a batch
+of its own on its device, and every step runs the vmapped step once per
+shard (one captured graph per shard on a card); rooms never interact, so
+no collective is needed, and the per-room summaries concatenate in slot
+order.  ``room_digest(ident_cols=...)`` is placement-invariant through
+``parallel.rowmigrate.canonical_digest``, for rooms whose rows a mesh
+migration permuted.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from ..core.store import WorldState
 from ..core.tree import flatten, unflatten
 from ..kernel.kernel import Kernel, _as_int32, state_digest
 from ..ops.stencil_cuda import KERNELS
+from .mesh import ROOMS_AXIS, Mesh
 from ..persist.rowblob import (
     RowBlobError,
     class_row_leaf_items,
@@ -77,12 +82,8 @@ __all__ = [
     "world_room_leaf_items",
 ]
 
-#: the name of the room axis (the JAX package's mesh axis of the same name)
-ROOMS_AXIS = "rooms"
 #: default slot-bank capacity when RoomDirectory isn't told one
 ENV_ROOM_SLOTS = "NF_ROOM_SLOTS"
-_MULTI_DEVICE = ("spreading rooms over several devices waits for the multi-device "
-                 "slice (ROADMAP.md section 1, Multi-device)")
 
 # Every WorldState leaf path must match one of these patterns (or appear
 # in ROOM_EXCLUDED with a reason); world_room_leaf_items enforces it.
@@ -181,9 +182,14 @@ def room_digest(state: WorldState, class_order: Sequence[str],
     """Host-side uint32 digest of ONE room, equal to the device
     ``kernel.state_digest`` of it and to the JAX package's ``room_digest``
     (same seed, weights, rolling multiply; aux excluded).  Admission copies
-    leaves verbatim, so the positional fold is slot-invariant."""
+    leaves verbatim, so the positional fold is slot-invariant.
+    ``ident_cols`` switches to the placement-invariant twin
+    (``rowmigrate.canonical_digest``) for a room whose rows a mesh
+    migration permuted."""
     if ident_cols is not None:
-        raise NotImplementedError(f"room_digest(ident_cols=...): {_MULTI_DEVICE}")
+        from .rowmigrate import canonical_digest
+
+        return canonical_digest(state, class_order, ident_cols)
     mult = np.uint64(1000003)
     mask = np.uint64(0xFFFFFFFF)
 
@@ -316,8 +322,8 @@ def unpack_room_blob(blob: bytes, template: WorldState,
 class RoomBinPacker:
     """Assigns rooms to slots by load.
 
-    Slots group into ``n_blocks`` contiguous blocks (one per device of a
-    mesh in the JAX package; one card here).  Policy ``least-loaded``
+    Slots group into ``n_blocks`` contiguous blocks (one per shard of a
+    mesh).  Policy ``least-loaded``
     (default) admits into the block with the smallest total load that
     still has a free slot; ``first-fit`` takes the lowest free slot."""
 
@@ -401,24 +407,28 @@ class RoomBatch:
     ``_step`` runs under ``torch.func.vmap`` over a leading ``[R]`` axis
     and the template's own state and captures go unused.  The entries ride
     the template's CostBook (``rooms.step``, ``rooms.run``,
-    ``rooms.train``); capacity is a power of two."""
+    ``rooms.train``); capacity is a power of two.  With a ``mesh`` the
+    slots split into one block per shard, each a batch on its shard's
+    device stepped by its own dispatchers (``rooms.step/<shard>``...)."""
 
-    def __init__(self, template: Kernel, capacity: int, mesh=None, *, seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(f"RoomBatch(mesh=...): {_MULTI_DEVICE}")
+    def __init__(self, template: Kernel, capacity: int, mesh: Optional[Mesh] = None, *,
+                 seed: int = 0):
         if template.state is None:
             raise RuntimeError("template kernel must be built before RoomBatch wraps it")
         self.kernel = template
         self.device = template.device
         self.capacity = next_pow2(max(1, int(capacity)))
-        self.mesh = None
+        self.mesh = mesh
+        if mesh is not None and self.capacity % mesh.size:
+            raise ValueError(f"{self.capacity} room slots not divisible by "
+                             f"{mesh.size} devices")
         self.costbook = template.costbook
         self.tick_count = 0
         self.last_counters: Dict[str, np.ndarray] = {}
         # the [R, L] summary the counters were decoded from
         self.last_summary: Optional[np.ndarray] = None
         self._seed = int(seed)
-        self._step_fn = self._run_fn = self._train_fn = None
+        self._drop_captures()
         self._train_k = 0
         # train accounting (as Kernel.train_*), on the batch
         self.train_dispatches = 0
@@ -428,7 +438,48 @@ class RoomBatch:
         template._ensure_aux()
         self._blank = self._blank_room()
         self.state = _broadcast(self._blank, self.capacity)
-        self._slots = torch.arange(self.capacity, dtype=torch.int64, device=self.device)
+
+    # ------------------------------------------------------------ blocks
+    @property
+    def _devices(self) -> List[torch.device]:
+        if self.mesh is None:
+            return [self.device]
+        return [self.mesh.devices[i] for i in self.mesh.local]
+
+    @property
+    def _per(self) -> int:
+        """Slots per block."""
+        return self.capacity // (1 if self.mesh is None else self.mesh.size)
+
+    @property
+    def state(self) -> WorldState:
+        """Every room's state (leading ``[R]`` axis).  On a mesh this is a
+        copy joined from the shards' blocks; assigning splits it."""
+        if self.mesh is None:
+            return self._parts[0]
+        from .shard import join_state
+
+        rows = {p for p in flatten(self._parts[0])[2]}
+        return join_state(self._parts, rows, self.mesh, self.device)
+
+    @state.setter
+    def state(self, st: WorldState) -> None:
+        if self.mesh is None:
+            self._parts = [st]
+        else:
+            from .shard import room_shardings, split_state
+
+            room_shardings(st, self.mesh)
+            self._parts = split_state(st, self.mesh, all_rows=True)
+        self._slots = [torch.arange(self._per, dtype=torch.int64, device=d)
+                       for d in self._devices]
+
+    def _locate(self, slot: int) -> Tuple[int, int]:
+        """(local block, slot within it) of a global slot."""
+        block, local = divmod(slot, self._per)
+        if self.mesh is not None:
+            block = self.mesh.local.index(block)
+        return block, local
 
     # ------------------------------------------------------------ state
     def _blank_room(self) -> WorldState:
@@ -438,7 +489,9 @@ class RoomBatch:
         return st.replace(aux={k: fn() for k, fn in self.kernel._aux_init.items()})
 
     def _drop_captures(self) -> None:
-        self._step_fn = self._run_fn = self._train_fn = None
+        self._step_fns: Dict[int, Any] = {}
+        self._run_fns: Dict[int, Any] = {}
+        self._train_fns: Dict[int, Any] = {}
 
     def _sync_generation(self) -> None:
         """Drop the captured steps when the template invalidated, and
@@ -453,25 +506,29 @@ class RoomBatch:
         self._blank = self._blank_room()
         for cname in self.kernel.store.class_order:
             want = self._blank.classes[cname].alive.shape[0]
-            got = self.state.classes[cname].alive.shape[1]
+            got = self._parts[0].classes[cname].alive.shape[1]
             if want != got:
                 raise RuntimeError(
                     f"store capacity of {cname!r} changed {got}->{want} under a live "
                     "RoomBatch: size recipe capacities so auto-resize never fires "
                     "in batched worlds")
-        aux = {k: v for k, v in self.state.aux.items() if k not in self.kernel._aux_init}
-        aux.update(_broadcast(self._blank.aux, self.capacity))
-        self.state = self.state.replace(aux=aux)
+        parts = []
+        for part, dev in zip(self._parts, self._devices):
+            aux = {k: v for k, v in part.aux.items() if k not in self.kernel._aux_init}
+            blank, spec, _ = flatten(_broadcast(self._blank.aux, self._per))
+            aux.update(unflatten(spec, [x.to(dev) for x in blank]))
+            parts.append(part.replace(aux=aux))
+        self._parts = parts
 
     def load_state(self, state: WorldState) -> None:
         """Replace every room with ``state`` (leading ``[R]`` axis, e.g.
         ``core.store.rooms_from_numpy`` of the JAX package's batch); aux
         caches start blank."""
-        want = flatten(self.state.replace(aux={}))[0]
+        want = flatten(self._parts[0].replace(aux={}))[0]
         got = flatten(state.replace(aux={}))
         if len(got[0]) != len(want) or any(
-                tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype
-                for a, b in zip(got[0], want)):
+                tuple(a.shape[1:]) != tuple(b.shape[1:]) or a.dtype != b.dtype
+                or a.shape[0] != self.capacity for a, b in zip(got[0], want)):
             raise ValueError("state does not match the batch's rooms")
         self.state = state.replace(aux=_broadcast(self._blank.aux, self.capacity))
 
@@ -505,10 +562,31 @@ class RoomBatch:
         return self.costbook.wrap(name, fn, stage="tick", statics=statics, graph=True,
                                   launch_counters=KERNELS)
 
-    def _compile_step(self):
-        if self._step_fn is None:
-            self._step_fn = self._wrap("rooms.step", self._room_step, self.kernel._statics)
-        return self._step_fn
+    def _entry(self, cache: Dict[int, Any], name: str, fn, statics, block: int):
+        """The block's dispatcher (one per shard: a captured graph binds
+        its block's tensors)."""
+        if block not in cache:
+            tag = name if self.mesh is None else f"{name}/{self.mesh.local[block]}"
+            cache[block] = self._wrap(tag, fn, statics)
+        return cache[block]
+
+    def _each(self, cache, name, fn, statics, **kw):
+        """Dispatch every block; the per-block outputs in slot order."""
+        outs = []
+        for i, part in enumerate(self._parts):
+            new, out = self._entry(cache, name, fn, statics, i)(part, **kw)
+            self._parts[i] = new
+            outs.append(out)
+        return outs
+
+    def _cat(self, outs, dim: int = 0) -> torch.Tensor:
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs], dim=dim)
+
+    def _step_all(self) -> torch.Tensor:
+        return self._cat(self._each(self._step_fns, "rooms.step", self._room_step,
+                                    self.kernel._statics))
 
     def _decode(self, summary) -> Dict[str, np.ndarray]:
         self.last_summary = np.asarray(summary.cpu() if isinstance(summary, torch.Tensor)
@@ -520,7 +598,7 @@ class RoomBatch:
         """One frame for EVERY room; returns the per-room counter bank
         (name -> [R] int column) decoded off the one summary fetch."""
         self._sync_generation()
-        self.state, summary = self._compile_step()(self.state)
+        summary = self._step_all()
         self.tick_count += 1
         return self._decode(summary)
 
@@ -532,9 +610,8 @@ class RoomBatch:
         n = int(n)
         if n <= 0:
             return self.last_counters
-        if self._run_fn is None:
-            self._run_fn = self._wrap("rooms.run", self._room_step, self.kernel._statics)
-        self.state, summary = self._run_fn(self.state, times=n)
+        summary = self._cat(self._each(self._run_fns, "rooms.run", self._room_step,
+                                       self.kernel._statics, times=n))
         self.tick_count += n
         return self._decode(summary)
 
@@ -544,8 +621,8 @@ class RoomBatch:
         self.kernel.configure_train(k)
         if int(k) != self._train_k:
             self._train_k = int(k)
-            if self._train_fn is not None:
-                self._train_fn = None
+            if self._train_fns:
+                self._train_fns = {}
                 self.costbook.generation_bump(f"rooms_train_k:{k}")
 
     def _room_train(self, state: WorldState) -> Tuple[WorldState, torch.Tensor]:
@@ -565,12 +642,10 @@ class RoomBatch:
         n, kk = int(n), self._train_k
         if kk < 1:
             raise RuntimeError("configure_train(k) before train()")
-        if self._train_fn is None:
-            self._train_fn = self._wrap("rooms.train", self._room_train,
-                                        self.kernel._train_statics)
         lanes: List[np.ndarray] = []
         for _ in range(n // kk):
-            self.state, stacked = self._train_fn(self.state)
+            stacked = self._cat(self._each(self._train_fns, "rooms.train", self._room_train,
+                                           self.kernel._train_statics), dim=1)
             self.tick_count += kk
             self.train_dispatches += 1
             self.train_ticks += kk
@@ -578,7 +653,7 @@ class RoomBatch:
             self.train_fetch_bytes += arr.nbytes
             lanes.append(arr)
         for _ in range(n % kk):
-            self.state, summary = self._compile_step()(self.state)
+            summary = self._step_all()
             self.tick_count += 1
             lanes.append(summary.cpu().numpy()[None])
         out = (np.concatenate(lanes, axis=0) if lanes
@@ -593,7 +668,7 @@ class RoomBatch:
         room's packed leaves plus FRESH aux caches (blank for registered
         entries, zeros for others)."""
         aux = {}
-        for key, cur in self.state.aux.items():
+        for key, cur in self._parts[0].aux.items():
             if key in self._blank.aux:
                 aux[key] = self._blank.aux[key]
             else:
@@ -622,11 +697,12 @@ class RoomBatch:
         graphs are bound to, so admitting re-captures nothing."""
         self._sync_generation()
         slot = self._check_slot(slot)
-        dst, spec, paths = flatten(self.state)
+        block, local = self._locate(slot)
+        dst, spec, paths = flatten(self._parts[block])
         src, room_spec, _ = flatten(self._room_payload(room))
         if room_spec != spec:
             raise ValueError("admitted room's structure differs from the batch's rooms")
-        idx = self._slots[slot:slot + 1]
+        idx = self._slots[block][local:local + 1]
         for path, d, s in zip(paths, dst, src):
             if tuple(s.shape) != tuple(d.shape[1:]) or s.dtype != d.dtype:
                 raise ValueError(f"admitted room's {path} is {s.dtype}{tuple(s.shape)}, "
@@ -638,8 +714,9 @@ class RoomBatch:
         """One room's full state (aux included), copied off the batch."""
         self._sync_generation()
         slot = self._check_slot(slot)
-        leaves, spec, _ = flatten(self.state)
-        return unflatten(spec, [x[slot].clone() for x in leaves])
+        block, local = self._locate(slot)
+        leaves, spec, _ = flatten(self._parts[block])
+        return unflatten(spec, [x[local].clone() for x in leaves])
 
     def digest(self, slot: int, ident_cols: Optional[Dict[str, int]] = None) -> int:
         return room_digest(self.extract(slot), self.kernel.store.class_order, ident_cols)
@@ -669,15 +746,17 @@ class RoomBatch:
         bucket resize, so the soak gate stays clean."""
         self._sync_generation()
         new_cap = next_pow2(max(int(new_capacity), self.capacity + 1))
+        if self.mesh is not None and new_cap % self.mesh.size:
+            raise ValueError(f"{new_cap} slots not divisible by mesh width")
         self.costbook.generation_bump(f"rooms_grow:{self.capacity}->{new_cap}")
         pad = new_cap - self.capacity
         leaves, spec, _ = flatten(self.state)
         blank = flatten(self._payload_blank())[0]
-        self.state = unflatten(spec, [
+        grown = unflatten(spec, [
             torch.cat([cur, b.unsqueeze(0).expand(pad, *b.shape).to(cur.device)])
             for cur, b in zip(leaves, blank)])
         self.capacity = new_cap
-        self._slots = torch.arange(new_cap, dtype=torch.int64, device=self.device)
+        self.state = grown
         self._drop_captures()
         return new_cap
 
@@ -698,16 +777,16 @@ class RoomDirectory:
     LOCKSTEP with the batch, the parity oracle."""
 
     def __init__(self, recipe: Callable[[int], Any], capacity: Optional[int] = None,
-                 mesh=None, *, template_seed: int = 0, policy: str = "least-loaded",
+                 mesh: Optional[Mesh] = None, *, template_seed: int = 0,
+                 policy: str = "least-loaded",
                  registry: Optional[Any] = None):
-        if mesh is not None:
-            raise NotImplementedError(f"RoomDirectory(mesh=...): {_MULTI_DEVICE}")
         if capacity is None:
             capacity = int(os.environ.get(ENV_ROOM_SLOTS, "16"))
         self._recipe = recipe
         template = self._kernel_of(recipe(template_seed))
-        self.batch = RoomBatch(template, capacity, seed=template_seed)
-        self.packer = RoomBinPacker(self.batch.capacity, 1, policy=policy)
+        self.batch = RoomBatch(template, capacity, mesh=mesh, seed=template_seed)
+        n_blocks = mesh.size if mesh is not None else 1
+        self.packer = RoomBinPacker(self.batch.capacity, n_blocks, policy=policy)
         self.rooms: Dict[int, int] = {}  # room_id -> slot
         self.seeds: Dict[int, int] = {}  # room_id -> recipe seed
         self.controls: Dict[int, Any] = {}  # room_id -> lockstep world

@@ -478,3 +478,29 @@ def test_middleware_script_on_cuda_matches_cpu(cuda, monkeypatch):
     on_card = chip_smoke.mw_parity("cuda")
     assert on_card == chip_smoke.mw_parity("cpu")
     assert len(set(on_card[1])) > 1
+
+
+@pytest.mark.parametrize("engine", [1, 2])
+def test_sharded_world_on_cuda_matches_cpu(cuda, engine, monkeypatch):
+    """A 4,096-row world on a 4-shard virtual mesh of the card gives the
+    digest stream of the same sharded world on a virtual CPU mesh, and of
+    the single-device tick, with the engine's fold launched on every shard
+    of every tick."""
+    from noahgameframe_tpu_torch.parallel import ShardedKernel, make_mesh
+
+    monkeypatch.setenv("NF_PALLAS", str(engine))
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        w = build_benchmark_world(4096, seed=5, device=dev)
+        w.kernel.enable_digest()
+        sk = ShardedKernel(w.kernel, mesh=make_mesh(4, device=dev, virtual=True))
+        sk.place()
+        before = {k: v.launches for k, v in sc.KERNELS.items()}
+        streams[dev] = [sk.tick().counters["state_digest"] for _ in range(6)]
+        name = "combat_fold" if engine == 1 else "fused_neighborhood"
+        if dev == "cuda":
+            assert sc.KERNELS[name].launches - before[name] == 6 * 4
+    single = build_benchmark_world(4096, seed=5, device="cpu")
+    single.kernel.enable_digest()
+    want = [single.kernel.tick().counters["state_digest"] for _ in range(6)]
+    assert streams["cuda"] == streams["cpu"] == want

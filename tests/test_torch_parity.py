@@ -75,3 +75,17 @@ def test_tree_compare_names_a_flipped_bit(leaf):
     y["classes"]["NPC"]["f32"][0, 0] = 0.0
     with pytest.raises(AssertionError):
         assert_tree_equal(y, z)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One torch intra-op thread for a module's tests (import this fixture
+    into the module): beside the other test workers on the box, torch's
+    default pool oversubscribes the cores, and the mesh tests' many small
+    per-shard ops then run a hundred times slower."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -40,6 +40,7 @@ from noahgameframe_tpu_torch.parallel.rooms import (
     no_vmap_fallback,
     room_digest,
 )
+from noahgameframe_tpu_torch.parallel.mesh import ROOMS_AXIS, make_mesh
 from noahgameframe_tpu_torch.persist.rowblob import RowBlobError, frame_blob, unframe_blob
 from test_torch_parity import assert_tree_equal, jax_tree
 
@@ -363,12 +364,68 @@ def test_room_blob_fails_closed(jax_blob, damage):
         batch.admit_blob(0, bytes(bad))
 
 
-def test_multi_device_parts_raise():
-    batch = _port_batch()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        RoomBatch(batch.kernel, 4, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        room_digest(batch.extract(0), batch.kernel.store.class_order, ident_cols={"NPC": 0})
+def _port_mesh_batch(mesh, engine=0):
+    """``_port_batch`` with its slots block-partitioned over ``mesh``."""
+    w = _seed_train(GameWorld(WorldConfig(middleware=False, **TRAIN_CONFIG), device="cpu"),
+                    engine)
+    batch = RoomBatch(w.kernel, ROOMS, mesh=mesh)
+    for i in range(ROOMS):
+        batch.admit(i, w.kernel.state.replace(rng=prng_key(50 + i, "cpu")))
+    return batch
+
+
+def test_room_batch_on_a_mesh_equals_unsharded_and_jax(jax_runs):
+    """Four rooms over a two-shard virtual CPU mesh: every tick's [R, L]
+    summary equals the unsharded batch's and the JAX package's, and every
+    room's digest the unsharded room's."""
+    mesh = make_mesh(2, axis=ROOMS_AXIS, device="cpu", virtual=True)
+    sharded, plain = _port_mesh_batch(mesh), _port_batch()
+    want = jax_runs[0][0]
+    for t in range(6):
+        sharded.tick()
+        plain.tick()
+        np.testing.assert_array_equal(sharded.last_summary, plain.last_summary)
+        np.testing.assert_array_equal(sharded.last_summary, want[t])
+    assert [sharded.digest(i) for i in range(ROOMS)] == [plain.digest(i) for i in range(ROOMS)]
+
+
+def test_room_digest_ident_cols_equals_jax():
+    """The placement-invariant room digest (canonical_digest over an
+    identity column) of a room equals the JAX package's."""
+    port, ref = _port_batch(), _jax_batch()
+    port.tick()
+    ref.tick()
+    order = port.kernel.store.class_order
+    ident = {c: 0 for c in order}
+    want = [jrooms.room_digest(ref.extract(i), order, ident_cols=ident) for i in range(ROOMS)]
+    got = [room_digest(port.extract(i), order, ident_cols=ident) for i in range(ROOMS)]
+    assert got == want
+    assert got != [port.digest(i) for i in range(ROOMS)]  # a different fold
+
+
+def test_room_capacity_not_dividing_the_mesh_raises():
+    """As in the JAX package: a slot bank that does not divide the mesh
+    raises, at construction and at grow."""
+    from noahgameframe_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    jb = _jax_batch()
+    with pytest.raises(ValueError, match="not divisible"):
+        jrooms.RoomBatch(jb.kernel, ROOMS, mesh=jax_mesh(8, axis=ROOMS_AXIS))
+    with pytest.raises(ValueError, match="not divisible"):
+        jrooms.RoomBatch(jb.kernel, ROOMS, mesh=jax_mesh(3, axis=ROOMS_AXIS))
+    pb = _port_batch()
+    with pytest.raises(ValueError, match="not divisible"):
+        RoomBatch(pb.kernel, ROOMS, mesh=make_mesh(8, axis=ROOMS_AXIS, device="cpu",
+                                                   virtual=True))
+    with pytest.raises(ValueError, match="not divisible"):
+        RoomBatch(pb.kernel, ROOMS, mesh=make_mesh(3, axis=ROOMS_AXIS, device="cpu",
+                                                   virtual=True))
+    # a grow re-partitions the wider bank over the same mesh
+    grown = _port_mesh_batch(make_mesh(4, axis=ROOMS_AXIS, device="cpu", virtual=True))
+    before = [grown.digest(i) for i in range(ROOMS)]
+    assert grown.grow(8) == 8
+    assert [grown.digest(i) for i in range(ROOMS)] == before
+    assert [p.classes["NPC"].alive.shape[0] for p in grown._parts] == [2] * 4
 
 
 # -- (f) the bin packer -----------------------------------------------------------
