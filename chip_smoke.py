@@ -21,9 +21,10 @@ non-zero without printing a result:
    the same ``state_digest``; tick times (median and mean), the drain
    after the host's last launch, launches per tick, busy share, and each
    kernel's launches in the graph run (counted per replay);
-(b) ``NF_BINNING=count`` against ``sort`` under engines 0, 1 and 2: one
-   digest after 30 graph ticks from the same state, and each setting's
-   tick time;
+(b) ``NF_BINNING=count`` against ``sort`` under engines 0, 1 and 2, and
+   engine 1's sort under ``NF_RADIX=2`` (the radix argsort in the tick's
+   graph): one digest after 30 graph ticks from the same state, and each
+   setting's tick time;
 (d) ``train(K=8)`` against ``tick()``: equal counters and digests over 16
    observed ticks (after 20 that settle the overflow auto-resize), and
    the train's peak memory;
@@ -46,7 +47,8 @@ non-zero without printing a result:
    sees exactly one fold-kernel launch per replayed rooms tick (engines 1
    and 2); ``train(K=8)`` equals ``tick()`` over 16 ticks; a churn
    (destroy, create into the recycled slot, re-home) drops no row and
-   re-captures nothing; then the bench's rooms ladder (``--rooms``), its
+   re-captures nothing; then the bench's rooms ladder at 256 and 4,096
+   rooms (``--rooms --rooms-count 256,4096``; 16,384 is this phase's), its
    line printed.  Phase 2 also holds each kernel's room axis: at the
    rooms geometry (R = 16,384, 10 x 10 cells, Kv = 8, Ka = 6) and at R = 3
    with width 13, one batched launch equals a loop of one launch a room
@@ -105,7 +107,7 @@ non-zero without printing a result:
    frames recorded on the card replays digest-clean on the card and on
    the CPU, and a perturbed replay is bisected to the injected tick; then
    the bench's ``--served`` line at 100k and 500 sessions.  The overlap
-   and train engines serve 10 and 16 frames, the others 30.  The kernel
+   and train engines serve 10 and 16 frames, the others 20.  The kernel
    table gains each kernel's launches on this path (``served_launches``);
 (j) the five-role cluster (run after (i)): ``LocalCluster(backend="auto",
    http_port=0, n_games=2, device="cuda")`` over two 100,000-NPC worlds
@@ -150,7 +152,7 @@ non-zero without printing a result:
    with equal digests, module state and credited killers.  The kernel
    table gains each kernel's launches on this path
    (``middleware_launches``);
-(l) the multi-device layer (run last; every mesh a virtual mesh of
+(l) the multi-device layer (run after (k); every mesh a virtual mesh of
    ``cuda:0``, ``make_mesh(n, device="cuda:0", virtual=True)``): the 1M
    world of phase 3, settled 20 frames, on 4 shards: 30 observed ticks
    under ``NF_PALLAS=1`` and under ``NF_PALLAS=2``, ``run_device(30)``
@@ -170,7 +172,19 @@ non-zero without printing a result:
    of ``cuda:0`` each: one sharded tick at 65,536 rows, both checksums
    equal the local tick's.  A 4,096-row world on 4 shards gives equal
    digests on cpu and cuda.  The kernel table gains each kernel's
-   launches on the sharded 1M path (``sharded_launches``).
+   launches on the sharded 1M path (``sharded_launches``);
+(m) the game-day drill (run last, ``phase_drill``): the flagship campaign
+   of scripts/torch_gameday_smoke.py (a hard store outage, Game1
+   hard-killed during it and during a 40-session surge, heal, revive from
+   checkpoint and WAL) at the JAX script's size on ``cuda``, then at a real
+   size over phase (j)'s 100,000-NPC recipe and lease cadence (zero
+   dropped sessions, every invariant clean every pump, the revived banks
+   equal a control's, Game2's journal replays digest-clean; the re-home
+   time, longest pump round, checkpoint save and load seconds; one tick's
+   fold held against its plain version), and the elastic-mesh campaign of
+   scripts/torch_reshard_smoke.py (2 -> 4 -> 3 virtual shards of
+   ``cuda:0`` against a 1-shard control).  The kernel table gains each
+   kernel's launches in the real-size campaign (``drill_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -808,26 +822,34 @@ def phase_main_path():
 
 
 def phase_binning(w, s0):
-    """(b): NF_BINNING=count against sort at 1M, under engines 0, 1 and 2:
-    30 graph ticks from the same state land on one digest; each knob
-    setting's tick time (mean, and median of 10 single ticks)."""
+    """(b): NF_BINNING=count against sort at 1M, under engines 0, 1 and 2,
+    and engine 1's sort under NF_RADIX=2: 30 graph ticks from the same
+    state land on one digest; each knob setting's tick time (mean, and
+    median of 10 single ticks)."""
     k = w.kernel
     out = {}
-    for engine in (1, 0, 2):
+    # engine 1 also sorts under NF_RADIX=2: the sort engine's radix argsort
+    # (4-way digits), captured in the tick's graph in place of the argsort
+    settings = [(1, "sort", ""), (1, "sort", "2"), (1, "count", ""),
+                (0, "sort", ""), (0, "count", ""), (2, "sort", ""), (2, "count", "")]
+    for engine, mode, radix in settings:
         w.combat.use_pallas = engine
-        for mode in ("sort", "count"):
-            os.environ["NF_BINNING"] = mode
-            k.run_device(1, reconcile=False)  # (re)captures under these knobs
-            restore_inplace(k, s0)
-            r = timed_run(k, 30, graph=True)
-            r["median_tick_ms"] = statistics.median(tick_times(k, 10, graph=True))
-            out[f"engine{engine}_{mode}"] = r
+        os.environ["NF_BINNING"] = mode
+        os.environ["NF_RADIX"] = radix
+        k.run_device(1, reconcile=False)  # (re)captures under these knobs
+        restore_inplace(k, s0)
+        r = timed_run(k, 30, graph=True)
+        r["median_tick_ms"] = statistics.median(tick_times(k, 10, graph=True))
+        out[f"engine{engine}_{mode}" + (f"_radix{radix}" if radix else "")] = r
     os.environ.pop("NF_BINNING")
+    os.environ.pop("NF_RADIX")
     w.combat.use_pallas = None
     check(len({r["digest"] for r in out.values()}) == 1,
-          "every engine under count and sort binning lands on one digest after 30 ticks")
+          "every engine under count and sort binning, and NF_RADIX=2, lands on one "
+          "digest after 30 ticks")
     causes = k.costbook.entry("kernel.run").causes
     check(causes.get("static:binning", 0) >= 1, "the binning change re-captured the tick")
+    check(causes.get("static:radix", 0) >= 1, "NF_RADIX re-captured the tick")
     emit({"phase": "binning_count_vs_sort", "entities": N_MAIN, "ticks": 30,
           "digests_equal": True, "runs": out, "recapture_causes": causes})
 
@@ -1186,8 +1208,10 @@ def tick_times_rooms(batch, n: int) -> list:
 
 
 def phase_bench_rooms():
-    """(f): the bench's rooms ladder, as a user runs it (a subprocess)."""
-    cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--rooms"]
+    """(f): the bench's rooms ladder, as a user runs it (a subprocess), at
+    256 and 4,096 rooms: phase (f) itself ticks the 16,384 rung's batch."""
+    cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--rooms",
+           "--rooms-count", "256,4096"]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     check(proc.returncode == 0, f"the rooms bench exits 0 ({proc.stderr[-2000:]})")
@@ -1197,7 +1221,7 @@ def phase_bench_rooms():
           "the rooms bench measured its ticks")
     check(d["all_gates"] and all(p["graph"] for p in d["points"]),
           "the rooms bench's gates hold and its run loop is a graph")
-    check([p["rooms"] for p in d["points"]] == [256, 4096, ROOMS_MAIN],
+    check([p["rooms"] for p in d["points"]] == [256, 4096],
           "the rooms bench ran its ladder")
     emit({"phase": "bench_rooms", "line": line})
 
@@ -1828,9 +1852,9 @@ def phase_aoi_interest(card: str):
 SERVED_N = 100_000
 SERVED_1M = N_MAIN
 SERVED_SESSIONS = 500
-SERVED_FRAMES = 30
-# the engines after batched serve fewer frames (the cut that makes room
-# for phase (l) in the time limit); train8 keeps whole trains
+SERVED_FRAMES = 20
+# the engines after batched serve fewer frames (the cuts that make room
+# for phases (l) and (m) in the time limit); train8 keeps whole trains
 SERVED_FRAMES_OF = {"overlap": 10, "train8": 16}
 SERVED_WARMUP = 3
 SERVED_RADIUS = 8.0
@@ -2037,7 +2061,7 @@ def journal_run(root, device: str):
 
 
 def pinned_world(n: int, players: int, device: str, guid_base: int = 7_000_000, *,
-                 middleware: bool = False, teams: int | None = None):
+                 middleware: bool = False, teams: int | None = None, seed: int = SEED):
     """``build_benchmark_world(n)``'s recipe with a Player bank for
     ``players`` and the guid allocator pinned (at ``guid_base``) before the
     NPCs are seeded, so two builds (two devices, two engines) mint the same
@@ -2045,7 +2069,7 @@ def pinned_world(n: int, players: int, device: str, guid_base: int = 7_000_000, 
     ``teams`` sizes its Team bank."""
     extent = max(64.0, float(np.sqrt(n / 0.4)))
     w = gw.GameWorld(gw.WorldConfig(
-        npc_capacity=1 << int(np.ceil(np.log2(max(n, 64)))), extent=extent, seed=SEED,
+        npc_capacity=1 << int(np.ceil(np.log2(max(n, 64)))), extent=extent, seed=seed,
         player_capacity=1 << int(np.ceil(np.log2(max(players, 64)))),
         middleware=middleware), device=device)
     if teams is not None:
@@ -3645,7 +3669,7 @@ ELASTIC_CAP = 3 << 19
 ELASTIC_N = 1 << 19
 ELASTIC_BUDGET = 65_536
 SPATIAL_N = 4_194_304  # BASELINE config 5
-SPATIAL_TICKS = 8
+SPATIAL_TICKS = 4
 MESH_ROOM_TICKS = 10
 DIST_N = 65_536
 MESH_PARITY_N, MESH_PARITY_TICKS = 4096, 12
@@ -3674,9 +3698,10 @@ def sharded_kernel(k, n: int = MESH_SHARDS):
     return sk
 
 
-def held_against_plain(k, sk) -> dict:
-    """One sharded tick with each shard's fold held against its plain
-    version on the same tables (tolerance 0): {kernel: (calls, max err)}."""
+def held_against_plain(step) -> dict:
+    """One ``step()`` (a sharded tick: each shard's fold) with every fold
+    launch held against its plain version on the same tables (tolerance
+    0): {kernel: (calls, max err)}."""
     from noahgameframe_tpu_torch.game import combat as gcm
 
     errs = {"combat_fold": [], "fused_neighborhood": []}
@@ -3698,7 +3723,7 @@ def held_against_plain(k, sk) -> dict:
 
     gcm.combat_fold, gcm.fused_neighborhood = fold, fused
     try:
-        sk.tick()
+        step()
     finally:
         gcm.combat_fold, gcm.fused_neighborhood = real["combat_fold"], real["fused_neighborhood"]
     return {nm: (len(v), max(v) if v else None) for nm, v in errs.items()}
@@ -3757,7 +3782,7 @@ def mesh_world_1m():
                   f"({got_launches[name]} for {ticks} ticks x {MESH_SHARDS} shards)")
             for nm in launches:
                 launches[nm] += got_launches[nm]
-            held[name] = held_against_plain(k, sk)[name]
+            held[name] = held_against_plain(sk.tick)[name]
             check(held[name][0] == MESH_SHARDS and held[name][1] == 0,
                   f"engine {engine}: every shard's {name} equals its plain version")
             out["engines"][engine] = {
@@ -4078,6 +4103,113 @@ def phase_mesh(card: str):
     return launches, {nm: e for nm, (_c, e) in held.items()}
 
 
+# -- (m) the game-day drill ----------------------------------------------------------
+DRILL_SEED = 7
+DRILL_SESSIONS, DRILL_CHATS = 40, 5  # scripts/gameday_smoke.py's full campaign
+RESHARD_SESSIONS, RESHARD_CHATS = 12, 4  # scripts/reshard_smoke.py's
+
+
+def port_script(name: str):
+    """A script under scripts/ (the port's drills) as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drill_run(script, **kw) -> dict:
+    """One campaign of ``script``: every check must hold; returns its
+    report line's detail, its check count and its seconds."""
+    root = tempfile.mkdtemp(prefix="nf_drill_")
+    line_path = os.path.join(root, "line.json")
+    t0 = time.perf_counter()
+    try:
+        checks = script.run(root, out_path=line_path, **kw)
+        with open(line_path) as f:
+            line = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failed = [n for n, ok in checks.items() if not ok]
+    check(not failed, f"{script.__name__}: every check holds ({failed})")
+    return {"metric": line["metric"], "value": line["value"], **line["detail"],
+            "checks": len(checks), "seconds": time.perf_counter() - t0}
+
+
+def phase_drill(card: str):
+    """(m): the game-day drill (run last).
+
+    1. scripts/torch_gameday_smoke.py's flagship campaign at the JAX
+       script's full size (40 sessions, 5 chats, its regen recipe) on
+       ``cuda``: a hard store outage under Game1, Game1 hard-killed during
+       it and during the session surge, healed, revived from its
+       checkpoint and WAL; every check holds and the drill is clean.
+    2. The same campaign at a real size: Game1's worlds (live, revive
+       substrate, control) and Game2's of phase (j)'s recipe
+       (``build_benchmark_world(100_000)``'s, combat on, engine 1, 64
+       player rows, each game's guids pinned at its own base), radius 8
+       and batched serving, phase (j)'s lease cadence; zero dropped
+       sessions, every invariant clean every pump, the revived Game1's NPC
+       banks and tick equal a control ticked as far, Game2's journal
+       replays digest-clean.  ``combat_fold`` launches in the run (graph
+       replays, and each capture's warm-ups), and one tick of the
+       control's world after the run with every fold held against its
+       plain version.  The re-home time, the longest pump round, the
+       checkpoint's save and load seconds.
+    3. scripts/torch_reshard_smoke.py's campaign at the JAX script's full
+       size (12 sessions, 4 chats) on virtual meshes of ``cuda:0`` (2 ->
+       4 -> 3 shards and the 1-shard control): every check holds, and
+       ``StableUnderReshard``'s digest clause against the control with
+       it."""
+    t_phase = time.perf_counter()
+    out = {"phase": "drill", "card": card}
+    gameday = port_script("torch_gameday_smoke")
+    reshard = port_script("torch_reshard_smoke")
+    launches0 = sck.KERNELS["combat_fold"].launches
+    out["gameday"] = drill_run(gameday, seed=DRILL_SEED, sessions=DRILL_SESSIONS,
+                               chats=DRILL_CHATS, device=DEV)
+    check(sck.KERNELS["combat_fold"].launches == launches0,
+          "the regen recipe launches no fold")
+
+    built = []
+
+    def world(seed: int, player_capacity: int, device):
+        # Game1's worlds come from the campaign's seed, Game2's from seed + 1000
+        base = GUID_BASE["Game1" if seed == DRILL_SEED else "Game2"]
+        w = pinned_world(CLUSTER_N, player_capacity, device, base, seed=seed)
+        built.append((seed, w))
+        return w
+
+    recipe = gameday.Recipe(world=world, role_kwargs=dict(CLUSTER_KW), keepalive_s=KEEPALIVE_S,
+                            lease_suspect_s=LEASE_SUSPECT_S, lease_down_s=LEASE_DOWN_S)
+    sck.reset_launch_counts()
+    real = drill_run(gameday, seed=DRILL_SEED, sessions=DRILL_SESSIONS, chats=DRILL_CHATS,
+                     device=DEV, recipe=recipe)
+    launches = {n: kk.launches for n, kk in sck.KERNELS.items()}
+    check(launches["combat_fold"] > 0, "combat_fold launched in the real-size drill")
+    # the control (Game1's third world) ended the run ticked as far as the revived game
+    control = [w for seed, w in built if seed == DRILL_SEED][1]
+    held = held_against_plain(control.kernel.tick)
+    check(held["combat_fold"][0] == 1 and held["combat_fold"][1] == 0,
+          f"the drill world's fold equals its plain version ({held})")
+    out["real_size"] = {**real, "entities": CLUSTER_N, "worlds": len(built),
+                        "keepalive_s": KEEPALIVE_S, "lease_suspect_s": LEASE_SUSPECT_S,
+                        "lease_down_s": LEASE_DOWN_S, "launches": launches,
+                        "held_against_plain": {nm: {"calls": c, "max_abs_err": e}
+                                               for nm, (c, e) in held.items()}}
+    del built, control
+    free()
+    out["reshard"] = drill_run(reshard, seed=DRILL_SEED, sessions=RESHARD_SESSIONS,
+                               chats=RESHARD_CHATS, device=MESH_DEVICE)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    free()
+    return launches, held["combat_fold"][1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4122,6 +4254,8 @@ def main() -> int:
     cluster_launches = phase_cluster(card)
     free()
     mesh_launches, mesh_err = phase_mesh(card)
+    free()
+    drill_launches, drill_err = phase_drill(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
@@ -4133,7 +4267,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src,
          "replaces": sck.KERNELS[name].replaces,
          "launches": launches[name],
-         "max_abs_err": max(max_err[name], room_err[name], mesh_err[name]),
+         "max_abs_err": max(max_err[name], room_err[name], mesh_err[name],
+                            drill_err if name == "combat_fold" else 0),
          "ms": timing[name]["ms"], "eager_ms": timing[name]["eager_ms"],
          "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
@@ -4144,6 +4279,7 @@ def main() -> int:
          "middleware_launches": middleware_launches[name],
          "cluster_launches": cluster_launches[name],
          "sharded_launches": mesh_launches[name],
+         "drill_launches": drill_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

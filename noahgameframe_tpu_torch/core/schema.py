@@ -9,9 +9,9 @@ rows, `<Record Id Row Col ...><Col Type Tag/></Record>` tables and
 Here a schema has two lives:
 
 1. Declarative (`PropertyDef`/`RecordDef`/`ClassDef`, `ClassRegistry`) —
-   built programmatically (`prop`, `record`).  Inheritance is flattened
-   parent-first, exactly like the reference's AddClassInclude chain.  (The
-   JAX package's reference-format XML loaders are not ported yet.)
+   loaded from reference-format XML (`load_logic_class_xml`) or built
+   programmatically (`prop`, `record`).  Inheritance is flattened
+   parent-first, exactly like the reference's AddClassInclude chain.
 
 2. Compiled (`ClassSpec`) — the TPU layout.  Every property becomes a column
    in one of three dtype-homogeneous banks (i32 / f32 / vec[3]), so a class
@@ -24,6 +24,8 @@ Here a schema has two lives:
 from __future__ import annotations
 
 import dataclasses
+import xml.etree.ElementTree as ET
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -285,6 +287,113 @@ class ClassRegistry:
             s = ClassSpec(self._flatten(name))
             self._specs[name] = s
         return s
+
+
+# ---------------------------------------------------------------------------
+# Reference-format XML loading
+# ---------------------------------------------------------------------------
+
+
+def _flag(elem: ET.Element, attr: str) -> bool:
+    return elem.get(attr, "0").strip() in ("1", "true", "True")
+
+
+def _parse_property(elem: ET.Element) -> PropertyDef:
+    t = XML_TYPE_NAMES[elem.get("Type", "int").lower()]
+    return PropertyDef(
+        name=elem.get("Id", ""),
+        type=t,
+        public=_flag(elem, "Public"),
+        private=_flag(elem, "Private"),
+        save=_flag(elem, "Save"),
+        cache=_flag(elem, "Cache"),
+        ref=_flag(elem, "Ref"),
+        upload=_flag(elem, "Upload"),
+        desc=elem.get("Desc", ""),
+    )
+
+
+def _parse_record(elem: ET.Element) -> RecordDef:
+    cols = tuple(
+        RecordColDef(tag=c.get("Tag", f"col{i}"), type=XML_TYPE_NAMES[c.get("Type", "int").lower()])
+        for i, c in enumerate(elem.findall("Col"))
+    )
+    # the reference trusts the <Col> children over the declared Col count
+    return RecordDef(
+        name=elem.get("Id", ""),
+        max_rows=int(elem.get("Row", "1")),
+        cols=cols,
+        public=_flag(elem, "Public"),
+        private=_flag(elem, "Private"),
+        save=_flag(elem, "Save"),
+        cache=_flag(elem, "Cache"),
+        upload=_flag(elem, "Upload"),
+        desc=elem.get("Desc", ""),
+    )
+
+
+def load_class_xml(path: Path, name: str, parent: Optional[str], instance_path: str = "",
+                   cipher_key=None) -> ClassDef:
+    """Parse one per-class XML (Propertys/Records/Components sections).
+    RC4-ciphered files (core/crypto.py NFRC4 convention; reference myrc4)
+    decrypt transparently when `cipher_key` is given."""
+    from .crypto import read_config_bytes
+
+    root = ET.fromstring(read_config_bytes(path, cipher_key))
+    props = [_parse_property(p) for p in root.findall("./Propertys/Property")]
+    recs = [_parse_record(r) for r in root.findall("./Records/Record")]
+    comps = [
+        ComponentDef(
+            name=c.get("Name", ""),
+            language=c.get("Language", "python"),
+            enable=_flag(c, "Enable"),
+            desc=c.get("Desc", ""),
+        )
+        for c in root.findall("./Components/Component")
+    ]
+    return ClassDef(
+        name=name,
+        parent=parent,
+        properties=props,
+        records=recs,
+        components=comps,
+        instance_path=instance_path,
+    )
+
+
+def load_logic_class_xml(logic_class_path: Path, data_root: Optional[Path] = None,
+                         cipher_key=None) -> ClassRegistry:
+    """Load a reference-format LogicClass.xml class tree.
+
+    `Path`/`InstancePath` attributes are resolved relative to `data_root`
+    (defaults to the directory containing the parent of LogicClass.xml, i.e.
+    the directory that paths like "NFDataCfg/Struct/Class/X.xml" are
+    relative to in the reference layout)."""
+    logic_class_path = Path(logic_class_path)
+    if data_root is None:
+        # .../NFDataCfg/Struct/LogicClass.xml -> data_root = .../
+        data_root = logic_class_path.parent.parent.parent
+    registry = ClassRegistry()
+
+    def walk(elem: ET.Element, parent: Optional[str]) -> None:
+        name = elem.get("Id", "")
+        rel = elem.get("Path", "")
+        inst = elem.get("InstancePath", "")
+        cls_path = data_root / rel if rel else None
+        if cls_path is not None and cls_path.exists():
+            cls = load_class_xml(cls_path, name, parent, inst, cipher_key=cipher_key)
+        else:
+            cls = ClassDef(name=name, parent=parent, instance_path=inst)
+        registry.define(cls)
+        for child in elem.findall("Class"):
+            walk(child, name)
+
+    from .crypto import read_config_bytes
+
+    root = ET.fromstring(read_config_bytes(logic_class_path, cipher_key))
+    for top in root.findall("Class"):
+        walk(top, None)
+    return registry
 
 
 # ---------------------------------------------------------------------------

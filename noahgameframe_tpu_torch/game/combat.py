@@ -57,6 +57,7 @@ from ..ops.stencil import (
     build_cell_slots_pair,
     build_cell_table_pair,
     pull_slots,
+    radix_bits,
     slots_from_assignment,
 )
 from ..ops.stencil_cuda import combat_fold, combat_fold_plain, fused_neighborhood
@@ -141,6 +142,7 @@ class CombatModule(Module):
             return {}
         cap = self.kernel.store.capacity(self.class_name)
         return {"engine": self.resolved_engine(), "binning": binning_mode(),
+                "radix": radix_bits(),
                 "emit_events": self.emit_events,
                 "verlet_skin": self.verlet_skin, "bucket": self.resolved_bucket(cap),
                 "att_bucket": self.resolved_att_bucket(cap)}

@@ -11,7 +11,10 @@ Counterpart of ``noahgameframe_tpu/ops/stencil.py``.  ``NF_BINNING``
   cell's smallest not-yet-ranked row id rank r.
 
 Both place the K smallest row ids of each cell and dump the rest, so
-their tables are bit-identical, overflow drops included.  Then:
+their tables are bit-identical, overflow drops included.  ``NF_RADIX``
+(:func:`radix_bits`), read as the JAX package reads it, swaps the sort
+engine's stable argsort for ``_radix_argsort``, bit-identical to it.
+Then:
 
 1. ``build_cell_table_pair`` packs features of the full population (the
    victims) and of a subset (the attackers) into dense
@@ -57,6 +60,48 @@ def binning_mode() -> str:
     if raw not in BINNING_MODES:
         raise ValueError(f"{ENV_BINNING}={raw!r}: expected one of {BINNING_MODES}")
     return raw
+
+ENV_RADIX = "NF_RADIX"
+
+
+def radix_bits() -> int:
+    """Bits per pass of the sort engine's radix argsort, from ``NF_RADIX``;
+    0 keeps the stable argsort.  The JAX package's semantics: a digit
+    value > 0 selects the radix path, anything else (unset, empty, 0, not
+    a digit) the argsort."""
+    raw = os.environ.get(ENV_RADIX, "")
+    return int(raw) if raw.isdigit() else 0
+
+
+def _radix_argsort(key: torch.Tensor, n_bits: int, bits_per_pass: int = 1) -> torch.Tensor:
+    """Stable LSD radix argsort of small non-negative int keys, equal to
+    ``torch.argsort(key, stable=True)`` (and to the JAX package's
+    ``_radix_argsort``): ceil(n_bits / bits_per_pass) stable partition
+    passes of ``2^b`` digit values.  A pass lays the one-hot of the digits
+    out digit plane by digit plane (``[2^b, N]``) and takes ONE flat
+    cumsum of it: at element i of plane v that is the count of smaller
+    digits plus the count of v up to i, the element's 1-based new position
+    (JAX's ``base[digit] + rank``).  A flat cumsum is one device-wide scan;
+    a cumsum along the N axis of an ``[N, 2^b]`` one-hot scans each
+    column serially on a card.  Two unique-index scatters then move the
+    keys and the order.  The pass count is fixed by ``n_bits``, so nothing
+    branches on a device value and the passes capture into a CUDA graph;
+    every op has a vmap rule."""
+    n = key.shape[0]
+    b = max(1, int(bits_per_pass))
+    digits = torch.arange(1 << b, dtype=key.dtype, device=key.device)
+    row = torch.arange(n, device=key.device)
+    k = key
+    order = torch.arange(n, dtype=torch.int32, device=key.device)
+    for i in range(-(-n_bits // b)):
+        digit = (k >> (i * b)) & ((1 << b) - 1)
+        planes = (digits[:, None] == digit[None, :]).to(torch.int32)  # [D, N]
+        incl = torch.cumsum(planes.reshape(-1), dim=0, dtype=torch.int32)
+        pos = incl.gather(0, digit.long() * n + row).long() - 1
+        k = torch.zeros_like(k).scatter(0, pos, k)
+        order = torch.zeros_like(order).scatter(0, pos, order)
+    return order
+
 
 # 3x3 stencil in (dy, dx) order: candidate iteration order, and therefore
 # tie-breaking, is identical in every engine
@@ -141,7 +186,12 @@ def _sorted_segments(pos, active, cell_size: float, width: int, cell=None,
     index of each element's segment head."""
     n = pos.shape[0]
     n_cells, key = _cell_keys(pos, active, cell_size, width, cell, n_cells)
-    order = torch.argsort(key, stable=True)  # row order kept within a cell
+    radix = radix_bits()
+    if radix > 0:
+        # keys lie in [0, n_cells]: the inactive key is n_cells itself
+        order = _radix_argsort(key, max(1, int(n_cells).bit_length()), radix)
+    else:
+        order = torch.argsort(key, stable=True)  # row order kept within a cell
     skey = key[order]
     # the segment head is the first occurrence of the element's key: a
     # binary search of the sorted keys (the JAX package takes a running

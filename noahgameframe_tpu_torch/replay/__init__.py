@@ -10,8 +10,6 @@
   field-level diff of two world states, ``dump_divergence`` over two
   journals, and the ``python -m noahgameframe_tpu_torch.replay.bisect``
   command line.
-
-The replayer imports the game role, so it is imported by path, not here.
 """
 
 from .journal import (  # noqa: F401
@@ -27,4 +25,13 @@ from .journal import (  # noqa: F401
     SRC_WORLD,
     read_ticks,
 )
+from .replayer import ReplayReport, make_offline_role, replay_journal  # noqa: F401
 from .bisect import bisect_divergence, field_diff, first_divergence_linear  # noqa: F401
+
+# the JAX package's star-import names (it defines no __all__)
+__all__ = [
+    "JournalError", "JournalReader", "JournalWriter", "REC_CKPT", "REC_EVENT",
+    "REC_META", "REC_NOTE", "REC_TICK", "SRC_SERVER", "SRC_WORLD", "read_ticks",
+    "ReplayReport", "make_offline_role", "replay_journal",
+    "bisect_divergence", "field_diff",
+]

@@ -23,6 +23,12 @@ XLA's FLOPs and bytes have no counterpart and are not recorded.  On the
 CPU nothing is captured: the entry runs the eager step, and every
 signature miss is still recorded with its cause (``graph: false``).
 
+:func:`roofline_fold` joins an entry's FLOPs and bytes with the stage
+clock's device seconds, as in the JAX package.  An entry folds only when
+its ``last`` record carries a cost (``flops`` or ``bytes_accessed``), and
+no capture record does, so on the port the fold yields no stages until a
+per-entry cost model fills them in.
+
 Sanctioned re-captures call :meth:`generation_bump`; ``mark()`` /
 ``unexplained_since(mark)`` is the soak gate that finds the others.
 """
@@ -38,7 +44,7 @@ import torch
 
 from ..core.tree import flatten, unflatten
 
-__all__ = ["CostBook", "CostEntry"]
+__all__ = ["CostBook", "CostEntry", "roofline_fold", "PEAKS", "HBM_SAMPLE_FRAMES"]
 
 #: re-capture events kept in the book's ring
 _EVENT_RING = 128
@@ -46,6 +52,18 @@ _EVENT_RING = 128
 HBM_SAMPLE_FRAMES = 64
 #: capture records kept per book (a runaway backstop)
 _COMPILE_LOG_CAP = 4096
+#: peak FLOPs/s and bytes/s per platform for the roofline fold.  The CPU
+#: row is the JAX package's provisional placeholder; the GPU row is the
+#: published spec of one H100 SXM at its 700 W power limit (float32
+#: outside the tensor cores, HBM3), the card this port is measured on.
+PEAKS: Dict[str, Dict[str, Any]] = {
+    "cpu": {"flops_per_s": 5.0e10, "bytes_per_s": 2.0e10,
+            "source": "provisional-nominal-cpu"},
+    "gpu": {"flops_per_s": 6.7e13, "bytes_per_s": 3.35e12,
+            "source": "h100-sxm-spec-f32 (NVIDIA H100 80GB HBM3, 700 W)"},
+}
+#: the keys of a cost record in a ``CostEntry.last``
+_COST_KEYS = ("flops", "bytes_accessed")
 #: eager runs on a side stream before a capture (allocator and lazy
 #: attribute set-up, such as a kernel's shared-memory opt-in, happen there)
 WARMUP_RUNS = 2
@@ -460,8 +478,62 @@ class CostBook:
         for name, e in sorted(self.entries.items()):
             yield ({"entry": name}, float(e.compiles) if which == 0 else e.capture_s_total)
 
+    def cost_samples(self, key: str) -> Iterable[Tuple[dict, float]]:
+        """Latest cost per entry (flops / bytes_accessed / temp_bytes /
+        ...): entries whose ``last`` record lacks ``key`` yield nothing."""
+        for name, e in sorted(self.entries.items()):
+            if key in e.last:
+                yield ({"entry": name}, float(e.last[key]))
+
     def launch_samples(self) -> Iterable[Tuple[dict, float]]:
         for name in sorted(self.entries):
             n = self.launches_per_replay(name)
             if n is not None:
                 yield ({"entry": name}, float(n))
+
+
+def roofline_fold(book: CostBook, pipeline_stats: Dict[str, Any],
+                  platform: Optional[str] = None) -> Dict[str, Any]:
+    """Join the book's FLOPs and bytes with the stage clock's device
+    seconds into achieved-against-peak fractions per stage.
+
+    ``pipeline_stats`` is ``GameRole.pipeline_stats()`` (frames and per-
+    stage mean/p50/p95 ms).  A stage's cost per frame is the sum over its
+    entries of (cost per dispatch x dispatches) / frames.  An entry
+    without a stage or without a cost record is skipped.  ``platform``
+    defaults to ``"gpu"`` when a CUDA device is present, else ``"cpu"``."""
+    if platform is None:
+        platform = "gpu" if torch.cuda.is_available() else "cpu"
+    peaks = PEAKS.get(platform, PEAKS["cpu"])
+    frames = max(1, int(pipeline_stats.get("frames", 0)))
+    stage_ms = pipeline_stats.get("stages", {})
+    per_stage: Dict[str, Dict[str, Any]] = {}
+    for name, e in sorted(book.entries.items()):
+        if e.stage is None or not any(k in e.last for k in _COST_KEYS):
+            continue
+        s = per_stage.setdefault(e.stage, {
+            "entries": [], "flops_per_frame": 0.0, "bytes_per_frame": 0.0,
+        })
+        s["entries"].append(name)
+        s["flops_per_frame"] += e.last.get("flops", 0.0) * e.calls / frames
+        s["bytes_per_frame"] += e.last.get("bytes_accessed", 0.0) * e.calls / frames
+    for stage, s in per_stage.items():
+        dev_s = float(stage_ms.get(stage, {}).get("mean_ms", 0.0)) / 1e3
+        s["device_s_per_frame"] = dev_s
+        if dev_s > 0:
+            s["achieved_flops_per_s"] = s["flops_per_frame"] / dev_s
+            s["achieved_bytes_per_s"] = s["bytes_per_frame"] / dev_s
+            s["frac_of_peak_flops"] = s["achieved_flops_per_s"] / peaks["flops_per_s"]
+            s["frac_of_peak_bytes"] = s["achieved_bytes_per_s"] / peaks["bytes_per_s"]
+        else:
+            s["achieved_flops_per_s"] = 0.0
+            s["achieved_bytes_per_s"] = 0.0
+            s["frac_of_peak_flops"] = 0.0
+            s["frac_of_peak_bytes"] = 0.0
+    return {
+        "platform": platform,
+        "provisional": str(peaks.get("source", "")).startswith("provisional"),
+        "peaks": dict(peaks),
+        "frames": frames,
+        "stages": per_stage,
+    }

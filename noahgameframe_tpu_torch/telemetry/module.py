@@ -14,8 +14,10 @@ sampled lazily at scrape time:
   ``nf_device_bytes``) and per-class live rows (``nf_entities_live``);
 - the cost book: ``nf_recompiles_total{entry,cause}``,
   ``nf_compiles_total`` (captures), ``nf_compile_seconds_total``
-  (warm-up plus capture), ``nf_graph_launches_per_replay`` and the
-  ``nf_hbm_*`` memory gauges;
+  (warm-up plus capture), ``nf_graph_launches_per_replay``, the
+  ``nf_hbm_*`` memory gauges, the per-entry cost gauges
+  ``nf_entry_{flops,bytes_accessed,temp_bytes}`` (no samples until an
+  entry carries a cost record) and ``nf_pallas_fallback_total`` (0);
 - a role's net sources: per-opcode ``nf_net_msgs_total`` /
   ``nf_net_bytes_total`` (direction/link/opcode labels) from every
   NetServerModule and NetClientModule pool (:meth:`add_net_source`), the
@@ -110,6 +112,26 @@ class TelemetryModule(Module):
         reg.register_callback(
             "nf_graph_launches_per_replay", lambda: self.costbook.launch_samples(),
             kind="gauge", help="device launches of one replay of each entry's CUDA graph",
+        )
+        # the cost gauges read an entry's cost record; no capture record
+        # carries one yet, so they have no samples on the port
+        reg.register_callback(
+            "nf_entry_flops", lambda: self.costbook.cost_samples("flops"),
+            kind="gauge", help="FLOPs of each entry's latest cost record",
+        )
+        reg.register_callback(
+            "nf_entry_bytes_accessed", lambda: self.costbook.cost_samples("bytes_accessed"),
+            kind="gauge", help="bytes accessed per entry (latest cost record)",
+        )
+        reg.register_callback(
+            "nf_entry_temp_bytes", lambda: self.costbook.cost_samples("temp_bytes"),
+            kind="gauge", help="temp buffer bytes per entry (latest cost record)",
+        )
+        # the port never downgrades a fold engine: the JAX package counts
+        # its fused engine's VMEM fallbacks here
+        reg.register_callback(
+            "nf_pallas_fallback_total", lambda: [({}, 0.0)], kind="counter",
+            help="fused-engine downgrades to the split-table path (always 0 on the port)",
         )
         reg.register_callback(
             "nf_hbm_bytes_in_use", lambda: self._hbm("live_bytes", fresh=True),

@@ -1,4 +1,4 @@
-"""Per-frame timing and the memory census.
+"""Per-frame timing, the memory census and the profiler hook.
 
 Counterpart of ``noahgameframe_tpu/utils/metrics.py``.  The timing window
 and all percentile math live in
@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -157,3 +158,24 @@ class MemoryCensus(Module):
         out = dict(self.census())
         out["device_bytes"] = self.device_bytes()
         return json.dumps(out)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str):
+    """``torch.profiler`` capture around a block (the JAX package's
+    ``jax.profiler`` trace): CPU activity, and CUDA activity when a card
+    is present.  Yields the profiler (``key_averages()`` sums by kernel)
+    and writes a Chrome trace, ``<log_dir>/trace.json`` (open it in
+    Perfetto), when the block ends, also when it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -7,8 +7,8 @@ A drifting full-store world grows 2 -> 4 shards and drains back to 2
 gate) and the JAX package's run of the same sequence on its CPU mesh,
 with zero dropped rows, the population conserved, and every re-signature
 of the sharded step explained by a CostBook generation bump.  The
-StableUnderReshard drill invariant of the JAX tests lives in ``drill/``,
-which the port does not have yet."""
+StableUnderReshard drill cases of the JAX tests are in
+tests/test_torch_drill.py."""
 
 import dataclasses
 

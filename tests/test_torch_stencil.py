@@ -17,6 +17,7 @@ from noahgameframe_tpu.ops import stencil as jst
 from noahgameframe_tpu.ops.stencil_pallas import combat_fold_pallas, fused_neighborhood
 from noahgameframe_tpu_torch.ops import stencil as tst
 from noahgameframe_tpu_torch.ops import stencil_cuda as tsc
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 WIDTH, CELL, RADIUS = 6, 5.0, 5.0
 
@@ -161,3 +162,90 @@ def test_pull_slots_matches():
     t_inc, t_bestr = tsc.combat_fold_plain(tvt, tat, RADIUS)
     want = jst.pull_slots(jvt.slot_of, jnp.stack([j_inc, j_bestr], -1), fill=(0, -1))
     _eq(want, tst.pull_slots(tvt.slot_of, torch.stack([t_inc, t_bestr], -1), fill=(0, -1)))
+
+
+# ------------------------------------------------------------ NF_RADIX
+def test_radix_knob_reads_as_jax_reads_it(monkeypatch):
+    """A digit value > 0 selects the radix path; anything else (unset,
+    empty, 0, a sign, not a digit) keeps the stable argsort."""
+    for raw, want in (("", 0), ("0", 0), ("1", 1), ("3", 3), ("-1", 0),
+                      ("two", 0), (" 2", 0)):
+        monkeypatch.setenv("NF_RADIX", raw)
+        assert tst.radix_bits() == want, raw
+        jax_radix = raw.isdigit() and int(raw) > 0  # ops/stencil.py:260-261
+        assert (tst.radix_bits() > 0) == jax_radix
+    monkeypatch.delenv("NF_RADIX")
+    assert tst.radix_bits() == 0
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3])
+def test_radix_argsort_equals_jax_and_stable_argsort(bits):
+    """Random keys, heavy duplicates, a single cell and one element:
+    the port's radix argsort equals the JAX package's and
+    ``torch.argsort(stable=True)``, also under ``torch.func.vmap`` (the
+    rooms' batched step)."""
+    rng = np.random.default_rng(11 + bits)
+    for n, hi in ((1, 2), (257, 9), (600, 1), (4096, 1024), (10_000, 156_026)):
+        key = rng.integers(0, hi, n).astype(np.int32)
+        n_bits = jst._bits_for(hi - 1)
+        got = tst._radix_argsort(torch.from_numpy(key), n_bits, bits)
+        want = torch.argsort(torch.from_numpy(key), stable=True)
+        np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=f"{n} {hi}")
+        ref = jst._radix_argsort(jnp.asarray(key), n_bits, bits)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref), err_msg=f"{n} {hi}")
+    keys = torch.from_numpy(rng.integers(0, 65, (3, 500)).astype(np.int32))
+    batched = torch.func.vmap(lambda k: tst._radix_argsort(k, 7, bits))(keys)
+    assert torch.equal(batched.long(), torch.argsort(keys, dim=1, stable=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _argsort_stream():
+    """The argsort engine's 30-tick digest stream at 4,096 NPCs; its
+    caller unsets NF_RADIX before the first call."""
+    from noahgameframe_tpu_torch.game.world import build_benchmark_world
+
+    w = build_benchmark_world(4096, seed=0, device="cpu")
+    w.kernel.enable_digest()
+    assert w.combat.capture_key()["radix"] == 0
+    return [w.tick().counters["state_digest"] for _ in range(30)]
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3])
+def test_radix_tables_and_digest_stream_equal_argsort(bits, monkeypatch):
+    """Under NF_RADIX the cell tables (both builders, every case) equal
+    the argsort engine's, and a 4,096-NPC world's 30-tick digest stream
+    equals the argsort world's.  The references (the cached tables and
+    stream) are built with NF_RADIX unset whatever the test order, and
+    the radix path is counted to show it ran."""
+    from noahgameframe_tpu_torch.game.world import build_benchmark_world
+
+    monkeypatch.delenv("NF_RADIX", raising=False)
+    refs = {case: _tables(case)[1] for case in sorted(CASES)}
+    want = _argsort_stream()
+    calls = []
+    radix_argsort = tst._radix_argsort
+
+    def counted(*args, **kwargs):
+        calls.append(args[2] if len(args) > 2 else kwargs["bits_per_pass"])
+        return radix_argsort(*args, **kwargs)
+
+    monkeypatch.setattr(tst, "_radix_argsort", counted)
+    monkeypatch.setenv("NF_RADIX", str(bits))
+    for case in sorted(CASES):
+        n, _seed, kv, ka, _knobs = CASES[case]
+        t, tvt, tat, tvs, tas = refs[case]
+        vt, at = tst.build_cell_table_pair(t["pos"], t["active"], t["vic"], t["attacking"],
+                                           t["att"], CELL, WIDTH, kv, ka)
+        vs, as_ = tst.build_cell_slots_pair(t["pos"], t["active"], t["attacking"],
+                                            CELL, WIDTH, kv, ka)
+        for a, b in ((vt, tvt), (at, tat), (vs, tvs), (as_, tas)):
+            assert torch.equal(a.slot_of, b.slot_of) and int(a.dropped) == int(b.dropped), case
+        for a, b in ((vt, tvt), (at, tat)):
+            assert torch.equal(a.payload.view(torch.int32), b.payload.view(torch.int32)), case
+    assert calls and set(calls) == {bits}
+    del calls[:]
+    w = build_benchmark_world(4096, seed=0, device="cpu")
+    w.kernel.enable_digest()
+    assert w.combat.capture_key()["radix"] == bits  # flipping it re-captures
+    assert [w.tick().counters["state_digest"] for _ in range(30)] == want
+    assert calls and set(calls) == {bits}

@@ -4,7 +4,9 @@ text and equal percentiles; the span tracer exports a valid Chrome trace
 and the tick's phases run under profiler ranges; a world's counter-bank
 lines equal the JAX world's after the same ticks; and the cost book
 records its entries and attributes every re-capture to a sanctioned
-generation bump."""
+generation bump.  ``cost_samples`` and ``roofline_fold`` equal JAX's on
+forged entries; the cost gauges and ``nf_pallas_fallback_total`` are on
+``/metrics``; ``profiler_trace`` writes a Chrome trace."""
 
 import json
 
@@ -160,3 +162,81 @@ def test_tick_metrics_and_census():
     for name in ("nf_train_dispatches_total 0", 'nf_entities_live{class="NPC"} 128',
                  "nf_hbm_bytes_in_use 0"):
         assert name in text
+
+
+def _forged_books():
+    """One JAX and one port cost book holding the same forged entries:
+    the same stages, dispatch counts and ``last`` cost records."""
+    from noahgameframe_tpu.telemetry.costbook import CostBook as JCostBook
+    from noahgameframe_tpu_torch.telemetry.costbook import CostBook
+
+    entries = [
+        ("kernel.step", "tick", 30, {"flops": 4.0e9, "bytes_accessed": 2.5e9,
+                                      "temp_bytes": 1 << 20}),
+        ("kernel.train", "tick", 2, {"flops": 3.2e10, "bytes_accessed": 2.0e10}),
+        ("serve.scan/NPC", "serve", 30, {"flops": 0.0, "bytes_accessed": 6.4e7,
+                                          "temp_bytes": 4096}),
+        ("interest.step/NPC", "interest", 30, {"bytes_accessed": 1.0e6}),
+        ("no.cost", "serve", 5, {}),
+        ("no.stage", None, 9, {"flops": 1.0, "bytes_accessed": 1.0}),
+    ]
+    books = []
+    for book in (JCostBook(), CostBook()):
+        for name, stage, calls, last in entries:
+            e = book.entry(name, stage=stage)
+            e.calls, e.last = calls, dict(last)
+        books.append(book)
+    return books
+
+
+def test_cost_samples_and_roofline_fold_equal_jax():
+    from noahgameframe_tpu.telemetry.costbook import roofline_fold as jax_fold
+    from noahgameframe_tpu_torch.telemetry import roofline_fold
+    from noahgameframe_tpu_torch.telemetry.costbook import PEAKS
+
+    jbook, book = _forged_books()
+    for key in ("flops", "bytes_accessed", "temp_bytes", "argument_bytes"):
+        assert list(book.cost_samples(key)) == list(jbook.cost_samples(key)), key
+    stats = {"frames": 30, "stages": {"tick": {"mean_ms": 8.0}, "serve": {"mean_ms": 2.5},
+                                      "interest": {"mean_ms": 0.0}}}
+    got = roofline_fold(book, stats, platform="cpu")
+    assert got == jax_fold(jbook, stats, platform="cpu")
+    assert set(got["stages"]) == {"tick", "serve", "interest"} and got["provisional"]
+    assert got["stages"]["tick"]["entries"] == ["kernel.step", "kernel.train"]
+    # the port's GPU row is the H100's published spec at 700 W, not JAX's
+    gpu = roofline_fold(book, stats, platform="gpu")
+    assert gpu["peaks"] == PEAKS["gpu"] and not gpu["provisional"]
+    assert PEAKS["gpu"]["bytes_per_s"] == 3.35e12 and PEAKS["gpu"]["flops_per_s"] == 6.7e13
+    assert "tpu" not in PEAKS
+
+
+def test_cost_gauges_and_fallback_counter_on_metrics():
+    """The port's capture records carry no cost: the entry gauges are
+    exposed with no samples and the fold of a ticked world has no stage;
+    the fused engine never falls back, so the counter reads 0."""
+    from noahgameframe_tpu_torch.telemetry import roofline_fold
+
+    w = torch_world(128, seed=3, device="cpu")
+    w.kernel.tick()
+    assert w.kernel.costbook.entries["kernel.step"].last
+    _status, _ctype, body = w.telemetry.registry.handler("/metrics")
+    text = body.decode() if isinstance(body, bytes) else body
+    for name in ("nf_entry_flops", "nf_entry_bytes_accessed", "nf_entry_temp_bytes"):
+        assert f"# TYPE {name} gauge" in text
+        assert not [ln for ln in text.splitlines() if ln.startswith(name + "{")]
+    assert "# TYPE nf_pallas_fallback_total counter" in text
+    assert "\nnf_pallas_fallback_total 0\n" in text
+    fold = roofline_fold(w.kernel.costbook, {"frames": 1, "stages": {}}, platform="cpu")
+    assert fold["stages"] == {}
+
+
+def test_profiler_trace_writes_a_chrome_trace(tmp_path):
+    import torch
+
+    from noahgameframe_tpu_torch.utils import profiler_trace
+
+    with profiler_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(64).cumsum(0)
+    assert prof.key_averages()
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    assert any("cumsum" in str(e.get("name", "")) for e in events)

@@ -111,10 +111,13 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module (and chip_smoke.py) imports in a fresh process
-    without pulling jax, flax or noahgameframe_tpu into sys.modules, and
-    no source names them in an import statement."""
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Every port module (and chip_smoke.py, and the port's drill scripts)
+    imports in a fresh process without pulling jax, flax or
+    noahgameframe_tpu into sys.modules, and no source names them in an
+    import statement."""
+    scripts = [REPO / "scripts" / f"{name}.py"
+               for name in ("torch_gameday_smoke", "torch_reshard_smoke")]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", *scripts]
     banned = ("jax", "flax", "noahgameframe_tpu")
     for f in files:
         for mod in _imports(f):
@@ -124,8 +127,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for f in sorted(PORT.rglob("*.py"))
     ]
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for p in {[str(f) for f in scripts]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(p, p)\n"
+        "    sys.modules[p] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(sys.modules[p])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{banned!r})\n"
         "print(len(sys.modules)); assert not bad, bad\n"
