@@ -184,7 +184,24 @@ non-zero without printing a result:
    fold held against its plain version), and the elastic-mesh campaign of
    scripts/torch_reshard_smoke.py (2 -> 4 -> 3 virtual shards of
    ``cuda:0`` against a 1-shard control).  The kernel table gains each
-   kernel's launches in the real-size campaign (``drill_launches``).
+   kernel's launches in the real-size campaign (``drill_launches``);
+(n) the tools and the examples (run last, ``phase_examples``): the port's
+   emitters (``noahgameframe_tpu_torch/tools``) reproduce the committed
+   clients/unity/ files byte for byte, the C++ header compiles with
+   ``-Wall -Werror`` and round-trips every golden vector, and the codegen
+   pipeline's XML builds a world on the card that ticks; every tutorial
+   (examples/torch_*.py) on ``cuda`` prints its ``cpu`` run's value lines
+   (tutorials 5 and 8 on 4-shard virtual meshes of ``cuda:0``, 5 under both
+   kernels); the plugin template loaded by manifest into BASELINE config
+   4's world (1M NPCs, 4,096 players): every live player loses exactly 30
+   MP in 30 graph ticks (floored at 0, dead rows kept), the graph digest
+   stream equals eager ticks', one ``combat_fold`` a replayed tick, its
+   graph tick beside phase 3's; five scripts/torch_run_role.py processes
+   (the game's world on ``cuda``, a journal, a checkpoint dir): the
+   master's ``/json`` lists the five roles, a client logs in, enters and
+   chats, and the journal replays digest-clean on ``cuda`` and on ``cpu``.
+   The kernel table gains each kernel's launches in the in-process runs
+   (``examples_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -193,6 +210,7 @@ package beside this file, it fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -4140,7 +4158,7 @@ def drill_run(script, **kw) -> dict:
 
 
 def phase_drill(card: str):
-    """(m): the game-day drill (run last).
+    """(m): the game-day drill (run after (l)).
 
     1. scripts/torch_gameday_smoke.py's flagship campaign at the JAX
        script's full size (40 sessions, 5 chats, its regen recipe) on
@@ -4210,6 +4228,554 @@ def phase_drill(card: str):
     return launches, held["combat_fold"][1]
 
 
+# -- (n) the tools and the examples ------------------------------------------------
+HERE = os.path.dirname(os.path.abspath(__file__))
+EXAMPLES = os.path.join(HERE, "examples")
+TEMPLATE_PLAYERS = 4096  # live Player rows of the template world, in a bank of twice that
+TEMPLATE_TICKS = 30
+TEMPLATE_DEAD_MP = 50  # written into the dead Player rows: the phase must keep it
+PINNED_GUID = 5_000_000
+# tests/test_codegen.py's class sheets
+IOBJECT_CSV = """[class],name=IObject
+[property]
+Name,Type,Public,Private,Save,Cache,Ref,Upload,Desc
+ID,string,0,1,0,0,0,0,
+ClassName,string,0,1,0,0,0,0,
+SceneID,int,0,1,0,0,0,0,
+GroupID,int,0,1,0,0,0,0,
+"""
+HERO_CSV = """[class],name=Hero,parent=IObject,instancepath=Ini/Hero.xml
+[property]
+Name,Type,Public,Private,Save,Cache,Ref,Upload,Desc
+HP,int,1,1,1,0,0,0,hit points
+Speed,float,1,0,0,0,0,0,
+Title,string,1,1,1,1,0,0,
+Home,vector3,0,1,1,0,0,0,
+[record:Inventory],rows=8,public=1,save=1
+Tag,Type
+ItemID,string
+Count,int
+[components]
+Name,Language
+HeroAI,python
+"""
+HERO_INI_CSV = """Id,HP,Speed,Title
+hero_alpha,120,1.5,Captain
+hero_beta,90,2.25,Scout
+"""
+# examples/torch_<name>.py (the plugin template runs in template_check);
+# tutorials 5 and 8 build 4-shard virtual meshes
+TUTORIALS = ("tutorial1_lifecycle", "tutorial2_properties", "tutorial3_heartbeat_events",
+             "tutorial4_actor", "tutorial7_gameplay", "tutorial6_cluster",
+             "tutorial5_sharded_world", "tutorial8_spatial")
+
+
+@contextlib.contextmanager
+def pinned_guids():
+    """Every guid allocator built in the block starts pinned (the tutorials
+    print guids, wall-clock numbers otherwise), so two runs print the same
+    lines."""
+    from noahgameframe_tpu_torch.core.datatypes import GuidAllocator
+
+    init = GuidAllocator.__init__
+
+    def pinned(alloc, *a, **kw):
+        init(alloc, *a, **kw)
+        alloc.pin(PINNED_GUID)
+
+    GuidAllocator.__init__ = pinned
+    try:
+        yield
+    finally:
+        GuidAllocator.__init__ = init
+
+
+def example_lines(name: str, device: str, env=None) -> tuple:
+    """The lines ``examples/torch_<name>.py``'s ``main(device)`` prints
+    (tutorial 4's result lines sorted: its two threads finish in either
+    order), and its seconds; ``env`` is set around the run."""
+    import io
+    import runpy
+
+    ns = runpy.run_path(os.path.join(EXAMPLES, f"torch_{name}.py"))
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with pinned_guids(), contextlib.redirect_stdout(buf):
+            ns["main"](device)
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = buf.getvalue().splitlines()
+    results = sorted(ln for ln in lines if ln.startswith("  result from actor"))
+    if results:
+        rest = [ln for ln in lines if not ln.startswith("  result from actor")]
+        lines = rest[:1] + results + rest[1:]
+    return lines, time.perf_counter() - t0
+
+
+def cpp_driver(classes) -> str:
+    """A C++ program over the generated header: a framed stream on stdin
+    (msg id = index in ``classes``), each body decoded and re-encoded,
+    framed to stdout (tests/test_cpp_sdk.py's driver)."""
+    cases = "\n".join(
+        f"        case {i}: {{ nfmsg::{c.__name__} m; "
+        f"if (!m.Decode(body.data(), body.size())) return 2; out2 = m.Encode(); break; }}"
+        for i, c in enumerate(classes))
+    return ('#include "nfmsg.hpp"\n#include <cstdio>\n#include <iostream>\n#include <iterator>\n'
+            "int main() {\n"
+            "    std::string in((std::istreambuf_iterator<char>(std::cin)),\n"
+            "                   std::istreambuf_iterator<char>());\n"
+            "    std::string out; size_t off = 0; uint16_t id; std::string body;\n"
+            "    nfmsg::UnframeResult ur;\n"
+            "    while ((ur = nfmsg::unframe(in, off, id, body)) == nfmsg::UNFRAME_OK) {\n"
+            "        std::string out2;\n        switch (id) {\n"
+            f"{cases}\n        default: return 3;\n        }}\n"
+            "        nfmsg::frame(out, id, out2);\n    }\n"
+            "    if (ur == nfmsg::UNFRAME_ERROR) return 5;\n"
+            "    if (off != in.size()) return 4;\n"
+            "    fwrite(out.data(), 1, out.size(), stdout);\n    return 0;\n}\n")
+
+
+def start_sdk_build(root: str):
+    """Start g++ on the port's C++ header (``-Wall -Werror``) with a driver
+    over every wire class; returns (process, binary, classes)."""
+    from noahgameframe_tpu_torch.tools.emit_cpp_sdk import _collect, emit_header
+
+    classes = list(_collect())
+    with open(os.path.join(root, "nfmsg.hpp"), "w") as f:
+        f.write(emit_header())
+    with open(os.path.join(root, "main.cc"), "w") as f:
+        f.write(cpp_driver(classes))
+    exe = os.path.join(root, "roundtrip")
+    gpp = shutil.which("g++")
+    check(gpp is not None, "g++ is on PATH")
+    proc = subprocess.Popen([gpp, "-std=c++11", "-O1", "-Wall", "-Werror", "-I", root,
+                             os.path.join(root, "main.cc"), "-o", exe],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, exe, classes
+
+
+def tools_check(build, root: str) -> dict:
+    """(n) 1: the port's emitters reproduce clients/unity/ byte for byte,
+    every golden vector round-trips through the compiled header, and the
+    codegen pipeline's XML builds a world on the card that ticks."""
+    import struct
+    from pathlib import Path
+
+    from noahgameframe_tpu_torch.core.schema import load_logic_class_xml
+    from noahgameframe_tpu_torch.core.store import StoreConfig
+    from noahgameframe_tpu_torch.kernel import Kernel, Plugin, PluginManager
+    from noahgameframe_tpu_torch.tools import CodegenPipeline
+    from noahgameframe_tpu_torch.tools.emit_cs_sdk import emit_cs
+    from noahgameframe_tpu_torch.tools.golden_vectors import (
+        emit_cs_harness,
+        emit_vectors,
+        golden_cases,
+    )
+
+    out = {}
+    unity = os.path.join(HERE, "clients", "unity")
+    for fname, emit in (("NFMsg.cs", emit_cs), ("NFMsgGolden.tsv", emit_vectors),
+                        ("NFMsgGoldenTest.cs", emit_cs_harness)):
+        with open(os.path.join(unity, fname)) as f:
+            committed = f.read()
+        check(emit() == committed, f"the port's emitter reproduces clients/unity/{fname}")
+        out[fname] = len(committed.encode())
+    proc, exe, classes = build
+    t0 = time.perf_counter()
+    log, _ = proc.communicate(timeout=300)
+    out["gpp_wait_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the C++ header compiles with -Wall -Werror ({log[-2000:]})")
+    index = {c.__name__: i for i, c in enumerate(classes)}
+    cases = golden_cases()
+    stream = b"".join(struct.pack(">HI", index[n], len(raw) + 6) + raw for n, raw in cases)
+    r = subprocess.run([exe], input=stream, capture_output=True, timeout=60)
+    check(r.returncode == 0 and r.stdout == stream,
+          f"every golden vector round-trips byte-equal through the C++ binary (rc {r.returncode})")
+    out["golden_vectors"] = len(cases)
+    out["stream_bytes"] = len(stream)
+
+    src, dst = os.path.join(root, "src"), Path(root) / "out"
+    os.makedirs(src)
+    for fname, text in (("IObject.csv", IOBJECT_CSV), ("Hero.csv", HERO_CSV),
+                        ("Hero.ini.csv", HERO_INI_CSV)):
+        with open(os.path.join(src, fname), "w") as f:
+            f.write(text)
+    report = CodegenPipeline(Path(src), dst).run()
+    reg = load_logic_class_xml(dst / "Struct" / "LogicClass.xml", data_root=dst)
+    k = Kernel(reg, StoreConfig(default_capacity=16), device=DEV)
+    pm = PluginManager()
+    pm.register_plugin(Plugin("KernelPlugin", [k]))
+    k.elements.load_all(dst)
+    pm.start()
+    heroes = [k.create_from_element("Hero", e) for e in ("hero_alpha", "hero_beta")]
+    check([int(k.get_property(g, "HP")) for g in heroes] == [120, 90],
+          "the generated Hero elements seed their HP")
+    pm.run(2)
+    check(k.tick_count == 2 and k.state.classes["Hero"].i32.device.type == torch.device(DEV).type,
+          "the generated world ticks on the card")
+    out["codegen"] = {"classes": report["classes"], "files": len(report["struct"])
+                      + len(report["ini"]) + len(report["constants"]) + len(report["sql"]),
+                      "ticks": k.tick_count}
+    return out
+
+
+def tutorials_check() -> dict:
+    """(n) 2: every tutorial on ``cuda`` (5 and 8 on 4-shard virtual meshes
+    of ``cuda:0``, 5 under both kernels) prints the value lines of its
+    ``cpu`` run."""
+    out = {}
+    for name in TUTORIALS:
+        cpu, cpu_s = example_lines(name, "cpu")
+        if name == "tutorial5_sharded_world":
+            runs = {f"cuda NF_PALLAS={e}": example_lines(name, DEV, {"NF_PALLAS": str(e)})
+                    for e in (1, 2)}
+        else:
+            runs = {"cuda": example_lines(name, DEV)}
+        for label, (lines, _s) in runs.items():
+            if name == "tutorial5_sharded_world":
+                # the mesh and sharding lines name the devices
+                want = [ln for ln in cpu if ln.startswith("alive:")] + cpu[-1:]
+                got = [ln for ln in lines if ln.startswith("alive:")] + lines[-1:]
+            else:
+                want, got = cpu, lines
+            check(got == want, f"{name} on {label} prints its cpu run's lines ({got} vs {want})")
+        check(cpu[-1].endswith("done") or cpu[-1].endswith("OK"), f"{name} ran to its last line")
+        out[name] = {"cpu_s": cpu_s, **{f"{lb}_s": s for lb, (_l, s) in runs.items()},
+                     "last": cpu[-1], "lines": len(cpu)}
+        if name == "tutorial5_sharded_world":
+            out[name]["alive"] = [ln for ln in cpu if ln.startswith("alive:")][0]
+            out[name]["sharding"] = runs["cuda NF_PALLAS=1"][0][:2]
+    return out
+
+
+def template_world(n: int, players: int, device: str):
+    """BASELINE config 4's recipe (``build_benchmark_world(n)``'s geometry,
+    seed and combat) with examples/torch_plugin_template.py loaded by its
+    manifest before ``start()``, ``players`` live Player rows with MP in
+    a bank of twice that, and TEMPLATE_DEAD_MP written into the dead
+    rows."""
+    from pathlib import Path
+
+    from noahgameframe_tpu_torch.core.store import set_column, with_class
+
+    extent = max(64.0, float(np.sqrt(n / 0.4)))
+    w = gw.GameWorld(gw.WorldConfig(
+        npc_capacity=1 << int(np.ceil(np.log2(max(n, 64)))), extent=extent, seed=SEED,
+        attack_period_s=1.0, middleware=False, player_capacity=2 * players), device=device)
+    with tempfile.TemporaryDirectory() as d:
+        manifest = Path(d) / "Plugin.xml"
+        manifest.write_text('<XML><Plugin Name="torch_plugin_template"/></XML>')
+        sys.path.insert(0, EXAMPLES)
+        try:
+            check(w.pm.load_manifest(manifest) == 1, "the manifest loads the template")
+        finally:
+            sys.path.remove(EXAMPLES)
+    w.start()
+    w.scene.create_scene(1, width=extent)
+    w.seed_npcs(n)
+    k = w.kernel
+    rng = np.random.default_rng(SEED + 12)
+    k.state, _guids, _rows = k.store.create_many(k.state, "Player", players, values={
+        "SceneID": np.full(players, 1, np.int64), "GroupID": np.zeros(players, np.int64),
+        "MP": rng.integers(0, 2 * TEMPLATE_TICKS, players)})
+    cs = k.state.classes["Player"]
+    col = k.store.spec("Player").slot("MP").col
+    i32 = set_column(cs.i32, col, torch.where(cs.alive, cs.i32[:, col], TEMPLATE_DEAD_MP))
+    k.state = with_class(k.state, "Player", cs.replace(i32=i32))
+    return w
+
+
+def player_mp(k):
+    cs = k.state.classes["Player"]
+    return cs.i32[:, k.store.spec("Player").slot("MP").col].clone(), cs.alive.clone()
+
+
+def template_check() -> tuple:
+    """(n) 3: the plugin template at full width: 1M NPCs and 4,096 players.
+    Its MP drain over TEMPLATE_TICKS graph ticks, the graph stream against
+    eager ticks from the same state, the graph tick beside phase 3's, and
+    one combat_fold a replayed tick.  Returns the line and the world."""
+    t0 = time.perf_counter()
+    w = template_world(N_MAIN, TEMPLATE_PLAYERS, DEV)
+    k = w.kernel
+    check(w.pm.find_module_by_name("MyGameplayModule") is not None, "the template is registered")
+    k.enable_digest()
+    w.run(20)  # settles the overflow auto-resize
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s0 = snapshot(k.state)
+    mp0, alive = player_mp(k)
+    check(int(alive.sum()) == TEMPLATE_PLAYERS, "4,096 live players")
+
+    k.set_graph_tick(False)
+    eager = observed_stream(w, TEMPLATE_TICKS)
+    mp_eager, _ = player_mp(k)
+    k.state = fresh(s0)
+    k.set_graph_tick(True)
+    book = k.costbook
+    seq0 = book._seq
+    before = {nm: kk.launches for nm, kk in sck.KERNELS.items()}
+    graph = observed_stream(w, TEMPLATE_TICKS)
+    torch.cuda.synchronize()
+    fold = sck.KERNELS["combat_fold"].launches - before["combat_fold"]
+    warm = WARMUP_RUNS * sum(1 for r in book.compile_log
+                             if r["seq"] >= seq0 and r["entry"] == "kernel.step")
+    mp_graph, alive_after = player_mp(k)
+    check(graph == eager, "the template world's graph digest stream equals its eager ticks'")
+    check(torch.equal(mp_graph, mp_eager), "graph and eager ticks drain the same MP")
+    want = torch.where(alive, torch.clamp_min(mp0 - TEMPLATE_TICKS, 0), mp0)
+    check(torch.equal(alive_after, alive) and torch.equal(mp_graph, want),
+          f"every live player lost exactly {TEMPLATE_TICKS} MP (floored at 0), dead rows kept "
+          "theirs")
+    check(bool((mp_graph[~alive] == TEMPLATE_DEAD_MP).all()), "dead rows keep their MP")
+    check(fold == TEMPLATE_TICKS + warm,
+          f"one combat_fold a graph tick ({fold} vs {TEMPLATE_TICKS} + {warm} in warm-ups)")
+    prof = profile_run(lambda: [k.tick() for _ in range(10)], 10, host_ops=False)
+    check(prof["kernel_launches"]["combat_fold"] == 10,
+          "the profiler sees one combat_fold kernel a replayed tick of the template world")
+    tick_ms = graph_tick_ms(w)
+    line = {"entities": N_MAIN, "players": TEMPLATE_PLAYERS,
+            "player_rows": int(alive.numel()), "ticks": TEMPLATE_TICKS,
+            "build_and_settle_s": build_s, "digests_equal": True,
+            "mp_drained": TEMPLATE_TICKS, "floored_at_0": int((want == 0)[alive].sum()),
+            "dead_rows_kept": int((~alive).sum()), "combat_fold_launches": fold,
+            "warmup_launches": warm, "profiled_combat_fold_per_replayed_tick":
+                prof["kernel_launches"]["combat_fold"] / 10,
+            "graph_tick_ms": tick_ms,
+            "phase3_graph_tick_ms": MAIN_TICK_MS[0] if MAIN_TICK_MS else None,
+            "captures": captures(k), "last_digest": graph[-1]}
+    return line, w
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+PROCESS_XML = """<XML>
+  <Server ID="1" Type="MASTER" Name="M" IP="127.0.0.1" Port="{m}" MaxOnline="100"/>
+  <Server ID="4" Type="LOGIN" Name="L" IP="127.0.0.1" Port="{l}" MaxOnline="100"/>
+  <Server ID="7" Type="WORLD" Name="W" IP="127.0.0.1" Port="{w}" MaxOnline="100"/>
+  <Server ID="5" Type="PROXY" Name="P" IP="127.0.0.1" Port="{p}" MaxOnline="100"/>
+  <Server ID="6" Type="GAME" Name="G" IP="127.0.0.1" Port="{g}" MaxOnline="100"/>
+</XML>
+"""
+
+
+def five_processes(root: str, device: str) -> dict:
+    """(n) 4: scripts/torch_run_role.py five times, as
+    tests/test_multiprocess_cluster.py runs scripts/run_role.py, with the
+    game's world on ``device``, a journal and a checkpoint dir, and 0.5 s
+    keepalives (the library's 10 s refresh would hold the dashboard back
+    for 10-20 s): the master's ``/json`` lists the other four roles, a
+    GameClient logs in, enters and chats, and the game's journal replays
+    digest-clean through ``--replay`` on ``device`` and on ``cpu``.
+    (tests/test_torch_multiprocess_cluster.py runs it on the CPU.)"""
+    import signal
+    import urllib.request
+
+    from noahgameframe_tpu_torch.client import GameClient
+
+    launcher = os.path.join(HERE, "scripts", "torch_run_role.py")
+    m, l_, w, p, g, http = free_ports(6)
+    xml = os.path.join(root, "cluster.xml")
+    with open(xml, "w") as f:
+        f.write(PROCESS_XML.format(m=m, l=l_, w=w, p=p, g=g))
+    journal, ckpt = os.path.join(root, "journal"), os.path.join(root, "ckpt")
+    common = ["--server-xml", xml, "--keepalive-seconds", "0.5",
+              "--crash-log-dir", os.path.join(root, "crash")]
+    # one intra-op thread a role process: they hold small worlds, and
+    # beside other test workers full pools would oversubscribe the cores
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs, logs = {}, []
+    out = {}
+    t0 = time.perf_counter()
+
+    def log_tail(role: str) -> str:
+        with open(os.path.join(root, f"{role}.log")) as f:
+            return f.read()[-1500:]
+
+    try:
+        for role, sid, extra in (("master", 1, ["--http-port", str(http)]), ("world", 7, []),
+                                 ("login", 4, []), ("proxy", 5, []),
+                                 ("game", 6, ["--device", device, "--journal", journal,
+                                              "--checkpoint-dir", ckpt])):
+            log = open(os.path.join(root, f"{role}.log"), "w")
+            logs.append(log)
+            procs[role] = subprocess.Popen(
+                [sys.executable, launcher, "--role", role, "--id", str(sid), *common, *extra],
+                stdout=log, stderr=subprocess.STDOUT, cwd=HERE, env=env)
+        status, deadline = None, time.monotonic() + 180
+        while time.monotonic() < deadline:
+            if any(pr.poll() is not None for pr in procs.values()):
+                break
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{http}/json", timeout=2) as r:
+                    status = json.loads(r.read())
+                if all(status.get("servers", {}).get(k)
+                       for k in ("login", "world", "proxy", "game")):
+                    break
+            except OSError:
+                pass  # the master is not up yet
+            time.sleep(0.25)
+        dead = {r: pr.poll() for r, pr in procs.items() if pr.poll() is not None}
+        check(not dead, f"the five role processes run ({dead}: "
+                        f"{[log_tail(r) for r in dead]})")
+        check(status is not None and all(status["servers"].get(k)
+                                         for k in ("login", "world", "proxy", "game")),
+              f"the master's /json lists the five roles ({status})")
+        out["dashboard_green_s"] = time.perf_counter() - t0
+        out["servers"] = sorted(status["servers"])
+
+        c = GameClient("procuser")
+        c.connect("127.0.0.1", l_)
+
+        def pump(cond, what: str, timeout: float = 60.0) -> None:
+            end = time.monotonic() + timeout
+            while time.monotonic() < end:
+                c.execute()
+                if cond():
+                    return
+                time.sleep(0.01)
+            raise RuntimeError(f"check failed: the client's {what}")
+
+        t1 = time.perf_counter()
+        pump(lambda: c.connected, "login connect")
+        c.login()
+        pump(lambda: c.logged_in, "login")
+        c.request_world_list()
+        pump(lambda: c.worlds, "world list")
+        c.connect_world(c.worlds[0].server_id)
+        pump(lambda: c.world_grant is not None, "world grant")
+        c.connect_proxy()
+        pump(lambda: c.connected, "proxy connect")
+        c.verify_key()
+        pump(lambda: c.key_verified, "key")
+        c.select_server(6)
+        pump(lambda: c.server_selected, "server select")
+        c.create_role("Proc")
+        pump(lambda: c.roles, "role")
+        c.enter_game("Proc")
+        pump(lambda: c.entered, "enter")
+        c.chat("hello from one role per process")
+        pump(lambda: c.chat_log, "chat echo")
+        c.close()
+        out["login_enter_chat_s"] = time.perf_counter() - t1
+        game = procs.pop("game")
+        game.send_signal(signal.SIGINT)  # a clean stop closes the journal
+        check(game.wait(timeout=60) == 0, f"the game process stops cleanly ({log_tail('game')})")
+    finally:
+        for pr in procs.values():
+            pr.terminate()
+        for pr in procs.values():
+            try:
+                pr.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                pr.wait()
+        for log in logs:
+            log.close()
+    out["replay"] = {}
+    for on in dict.fromkeys((device, "cpu")):
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, launcher, "--role", "game", "--id", "6", *common,
+                            "--device", on, "--replay", journal, "--checkpoint-dir", ckpt],
+                           capture_output=True, text=True, cwd=HERE, env=env, timeout=300)
+        check(r.returncode == 0 and "REPLAY OK" in r.stdout,
+              f"the game's journal replays digest-clean on {on} "
+              f"({r.stdout[-800:]} {r.stderr[-1500:]})")
+        out["replay"][on] = {"seconds": time.perf_counter() - t1,
+                             "summary": r.stdout.strip().splitlines()[-1]}
+    return out
+
+
+def phase_examples(card: str):
+    """(n): the tools and the examples (run last, ``phase_examples``).
+
+    1. The port's emitters (``noahgameframe_tpu_torch/tools``) reproduce
+       the committed clients/unity/{NFMsg.cs,NFMsgGolden.tsv,
+       NFMsgGoldenTest.cs} byte for byte; ``emit_header()`` compiles with
+       ``g++ -std=c++11 -O1 -Wall -Werror`` (in the background, while 2 and
+       3 run) and every golden vector round-trips byte-equal through the
+       binary; ``CodegenPipeline`` over tests/test_codegen.py's CSV sheets
+       gives XML that the port's loader reads, and a Kernel on the card
+       built from it creates the Hero elements and ticks.
+    2. Every tutorial (examples/torch_*.py) on ``cuda`` prints the value
+       lines of its ``cpu`` run: tutorials 5 and 8 on 4-shard virtual
+       meshes of ``cuda:0``, 5 under ``NF_PALLAS=1`` and ``NF_PALLAS=2``.
+    3. The plugin template at full width (``template_check``).
+    4. Five role processes (``five_processes``).
+
+    The kernel table gains each kernel's launches in 2 and 3, this phase's
+    in-process runs (``examples_launches``); one eager tick of the template
+    world under each engine then holds every fold against its plain
+    version.  Returns the launches and each kernel's error there."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="nf_examples_")
+    build = start_sdk_build(root)
+    try:
+        sck.reset_launch_counts()
+        t0 = time.perf_counter()
+        tutorials = tutorials_check()
+        tutorials_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        template, w = template_check()
+        template_s = time.perf_counter() - t0
+        launches = {nm: kk.launches for nm, kk in sck.KERNELS.items()}
+        check(launches["combat_fold"] > 0 and launches["fused_neighborhood"] > 0,
+              f"both kernels launched in the examples ({launches})")
+        k = w.kernel
+        k.set_graph_tick(False)
+        held = {"combat_fold": held_against_plain(k.tick)["combat_fold"]}
+        os.environ["NF_PALLAS"] = "2"
+        try:
+            held["fused_neighborhood"] = held_against_plain(k.tick)["fused_neighborhood"]
+        finally:
+            os.environ.pop("NF_PALLAS", None)
+        for nm, (calls, err) in held.items():
+            check(calls == 1 and err == 0, f"the template world's {nm} equals its plain version")
+        del w, k
+        free()
+        t0 = time.perf_counter()
+        tools = tools_check(build, root)
+        tools_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        processes = five_processes(root, DEV)
+        processes_s = time.perf_counter() - t0
+    finally:
+        if build[0].poll() is None:
+            build[0].kill()
+            build[0].wait()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "examples", "card": card, "tools": {**tools, "seconds": tools_s},
+          "tutorials": {**tutorials, "seconds": tutorials_s},
+          "template": {**template, "seconds": template_s},
+          "processes": {**processes, "seconds": processes_s},
+          "launches": launches,
+          "held_against_plain": {nm: {"calls": c, "max_abs_err": e}
+                                 for nm, (c, e) in held.items()},
+          "seconds": time.perf_counter() - t_phase})
+    return launches, {nm: e for nm, (_c, e) in held.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4256,6 +4822,8 @@ def main() -> int:
     mesh_launches, mesh_err = phase_mesh(card)
     free()
     drill_launches, drill_err = phase_drill(card)
+    free()
+    examples_launches, examples_err = phase_examples(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
@@ -4268,7 +4836,7 @@ def main() -> int:
          "replaces": sck.KERNELS[name].replaces,
          "launches": launches[name],
          "max_abs_err": max(max_err[name], room_err[name], mesh_err[name],
-                            drill_err if name == "combat_fold" else 0),
+                            drill_err if name == "combat_fold" else 0, examples_err[name]),
          "ms": timing[name]["ms"], "eager_ms": timing[name]["eager_ms"],
          "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
@@ -4280,6 +4848,7 @@ def main() -> int:
          "cluster_launches": cluster_launches[name],
          "sharded_launches": mesh_launches[name],
          "drill_launches": drill_launches[name],
+         "examples_launches": examples_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

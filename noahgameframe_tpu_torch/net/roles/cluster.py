@@ -35,6 +35,18 @@ from .proxy import ProxyRole
 from .world import WorldRole
 
 
+def pace_role(role, keepalive_seconds: float) -> None:
+    """Scale every outbound pool's cadence of ``role`` to one keepalive:
+    reports at ``keepalive_seconds``, re-dials backing off from it (the
+    library defaults are sized for real deployments — a test cluster on a
+    10 s reconnect timer would make every fault take minutes)."""
+    ka = keepalive_seconds
+    for pool in role.clients.values():
+        pool.keepalive_seconds = ka
+        pool.retry = RetryPolicy(base=ka, cap=max(1.0, 5 * ka))
+        pool.reconnect_seconds = max(1.0, 5 * ka)  # CONNECTING timeout
+
+
 class LocalCluster:
     """Master + Login + World + Proxy + Game on localhost, one pump."""
 
@@ -144,15 +156,7 @@ class LocalCluster:
         return kw
 
     def _speed_role(self, role) -> None:
-        """Scale every outbound pool's cadence to the cluster keepalive:
-        reports at `keepalive_seconds`, re-dials backing off from it (the
-        library defaults are sized for real deployments — a test cluster
-        on a 10 s reconnect timer would make every fault take minutes)."""
-        ka = self.keepalive_seconds
-        for pool in role.clients.values():
-            pool.keepalive_seconds = ka
-            pool.retry = RetryPolicy(base=ka, cap=max(1.0, 5 * ka))
-            pool.reconnect_seconds = max(1.0, 5 * ka)  # CONNECTING timeout
+        pace_role(role, self.keepalive_seconds)
 
     # ------------------------------------------------------------- pump
     def execute(self) -> None:

@@ -122,7 +122,12 @@ def _walk(pos, gid, tick, geom: SpatialGeom):
     h = (h * 0xC2B2AE35) & MASK32
     h = h ^ (h >> 16)
     ang = (h >> 8).to(torch.float32) * float(np.float32(2.0 * np.pi / float(1 << 24)))
-    step = torch.stack([torch.cos(ang), torch.sin(ang)], -1) * float(np.float32(geom.speed))
+    # cos/sin in float64, rounded to float32: the card's float32 cos/sin
+    # differ from the CPU's in the last bit for ~20 % of these angles, their
+    # float64 results round alike (0 of 2,396,746 angles on an H100)
+    ang = ang.to(torch.float64)
+    step = (torch.stack([torch.cos(ang), torch.sin(ang)], -1).to(torch.float32)
+            * float(np.float32(geom.speed)))
     eps = 1e-3
     return torch.clamp(pos + step, float(np.float32(eps)),
                        float(np.float32(geom.extent - eps)))

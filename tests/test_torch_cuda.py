@@ -504,3 +504,20 @@ def test_sharded_world_on_cuda_matches_cpu(cuda, engine, monkeypatch):
     single.kernel.enable_digest()
     want = [single.kernel.tick().counters["state_digest"] for _ in range(6)]
     assert streams["cuda"] == streams["cpu"] == want
+
+
+def test_spatial_walk_on_cuda_matches_cpu(cuda):
+    """The spatial preset's random walk lands on the same float32 positions
+    on the card and on the CPU (float32 cos/sin differ between them in the
+    last bit for many angles; the walk takes them in float64)."""
+    from noahgameframe_tpu_torch.parallel.spatial import SpatialGeom, _walk
+
+    geom = SpatialGeom(extent=128.0, cell_size=4.0, width=32, n_shards=4, bucket=24,
+                       att_bucket=24, radius=4.0, mig_budget=256, speed=1.5)
+    n = 1 << 20
+    gid = torch.arange(n, dtype=torch.int32)
+    pos = torch.rand(n, 2, generator=torch.Generator().manual_seed(3)) * 120.0 + 4.0
+    for tick in (0, 1, 977):
+        want = _walk(pos, gid, tick, geom)
+        got = _walk(pos.to(cuda), gid.to(cuda), tick, geom).cpu()
+        assert torch.equal(got, want), tick

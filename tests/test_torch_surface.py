@@ -1,12 +1,13 @@
 """The port's package surface against the JAX package's.
 
-For each of ``core``, ``net``, ``replay``, ``telemetry``, ``utils`` and
-``drill``, ``from noahgameframe_tpu_torch.<pkg> import *`` gives the names
-that ``from noahgameframe_tpu.<pkg> import *`` gives (its ``__all__``, or
-for a package without one its public non-module names), every one of
-them importable, and every JAX submodule has a port counterpart, less
-:data:`LEFT_OUT`.  The subpackages import in a fresh interpreter with no
-import cycle, in the JAX package's order and after ``game.world``."""
+For each of ``core``, ``net``, ``replay``, ``telemetry``, ``utils``,
+``drill`` and ``tools``, ``from noahgameframe_tpu_torch.<pkg> import *``
+gives the names that ``from noahgameframe_tpu.<pkg> import *`` gives
+(its ``__all__``, or for a package without one its public non-module
+names), every one of them importable, and every JAX submodule has a
+port counterpart, less :data:`LEFT_OUT`.  The subpackages import in a
+fresh interpreter with no import cycle, in the JAX package's order and
+after ``game.world``."""
 
 import importlib
 import pkgutil
@@ -18,7 +19,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-PACKAGES = ("core", "net", "replay", "telemetry", "utils", "drill")
+PACKAGES = ("core", "net", "replay", "telemetry", "utils", "drill", "tools")
 
 #: JAX names the port leaves out, each with the reason
 LEFT_OUT = {

@@ -111,12 +111,15 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module (and chip_smoke.py, and the port's drill scripts)
-    imports in a fresh process without pulling jax, flax or
+    """Every port module (and chip_smoke.py, the port's scripts and its
+    examples) imports in a fresh process without pulling jax, flax or
     noahgameframe_tpu into sys.modules, and no source names them in an
     import statement."""
     scripts = [REPO / "scripts" / f"{name}.py"
-               for name in ("torch_gameday_smoke", "torch_reshard_smoke")]
+               for name in ("torch_gameday_smoke", "torch_reshard_smoke", "torch_codegen",
+                            "torch_emit_client_vectors", "torch_run_role")]
+    scripts += sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(scripts) == 14
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", *scripts]
     banned = ("jax", "flax", "noahgameframe_tpu")
     for f in files:
