@@ -38,7 +38,7 @@ non-zero without printing a result:
    ticks on ``cuda`` and on ``cpu``;
 (e) one run of the bench entry (``python -m noahgameframe_tpu_torch.bench``)
    at 1M, its JSON line printed on a line of its own;
-(f) many-worlds rooms at R = 16,384 (parallel/rooms.py ``RoomBatch``, the
+(f) many-worlds rooms at R = 8,192 (parallel/rooms.py ``RoomBatch``, the
    rooms recipe of the JAX package's bench: 64 NPC rows, 32 seeded, skin
    2.0): all rooms admitted into one batch; 30 ticks as the CUDA graph of
    the vmapped step under engines 1, 0 and 2 from the same state land on
@@ -48,7 +48,7 @@ non-zero without printing a result:
    and 2); ``train(K=8)`` equals ``tick()`` over 16 ticks; a churn
    (destroy, create into the recycled slot, re-home) drops no row and
    re-captures nothing; then the bench's rooms ladder at 256 and 4,096
-   rooms (``--rooms --rooms-count 256,4096``; 16,384 is this phase's), its
+   rooms (``--rooms --rooms-count 256``), its
    line printed.  Phase 2 also holds each kernel's room axis: at the
    rooms geometry (R = 16,384, 10 x 10 cells, Kv = 8, Ka = 6) and at R = 3
    with width 13, one batched launch equals a loop of one launch a room
@@ -102,12 +102,12 @@ non-zero without printing a result:
    window) and the re-captures with their causes.  The legacy and batched
    engines send byte-equal streams at 100k (sessions at seeded spots);
    at 4,096 NPCs and 32 sessions the card and the CPU (batched, overlap
-   and train engines), and the graph and the eager tick, send equal
-   streams with equal digests; a journal of 60
+   and train engines), and the graph and the eager tick (15 frames), send
+   equal streams with equal digests; a journal of 45
    frames recorded on the card replays digest-clean on the card and on
    the CPU, and a perturbed replay is bisected to the injected tick; then
-   the bench's ``--served`` line at 100k and 500 sessions.  The overlap
-   and train engines serve 10 and 16 frames, the others 20.  The kernel
+   the bench's ``--served`` line at 100k and 500 sessions (30 frames).  The overlap
+   and train engines serve 6 and 8 frames, the others 12.  The kernel
    table gains each kernel's launches on this path (``served_launches``);
 (j) the five-role cluster (run after (i)): ``LocalCluster(backend="auto",
    http_port=0, n_games=2, device="cuda")`` over two 100,000-NPC worlds
@@ -154,8 +154,8 @@ non-zero without printing a result:
    (``middleware_launches``);
 (l) the multi-device layer (run after (k); every mesh a virtual mesh of
    ``cuda:0``, ``make_mesh(n, device="cuda:0", virtual=True)``): the 1M
-   world of phase 3, settled 20 frames, on 4 shards: 30 observed ticks
-   under ``NF_PALLAS=1`` and under ``NF_PALLAS=2``, ``run_device(30)``
+   world of phase 3, settled 20 frames, on 4 shards: 16 observed ticks
+   under ``NF_PALLAS=1`` and under ``NF_PALLAS=2``, ``run_device(16)``
    and ``train(K=8)`` on the mesh all give the single-device graph
    tick's digest stream; the sharded tick's ms, its collective bytes and
    each fold's launches a shard, and one tick with every shard's launch
@@ -201,7 +201,19 @@ non-zero without printing a result:
    master's ``/json`` lists the five roles, a client logs in, enters and
    chats, and the journal replays digest-clean on ``cuda`` and on ``cpu``.
    The kernel table gains each kernel's launches in the in-process runs
-   (``examples_launches``).
+   (``examples_launches``);
+(o) the script drivers (run last, ``phase_scripts``), each on ``cuda`` at
+   the JAX script's size: scripts/torch_{chaos,persist,replay,pipeline}_
+   smoke.py and the failover smoke's ``run`` and ``surge``, each script's
+   checks (all true) and seconds; scripts/torch_costbook_smoke.py with the
+   served ``kernel.step``'s counted flops, bytes and temp bytes;
+   scripts/torch_roofline_report.py (20,000 entities, 32 sessions, 120
+   ticks, ``NF_STAGE_TIMING=1``) with each stage's achieved fractions of
+   the card's peaks; scripts/torch_telemetry_smoke.py; and
+   scripts/torch_{export,capture}_trace.py under engines 1 and 2 (1,024
+   entities and 30 ticks; 1M and 3 graph ticks), each profile naming its
+   engine's kernel.  The kernel table gains each kernel's launches there
+   (``scripts_launches``).
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -247,6 +259,9 @@ FLOPS_PER_PAIR = 5
 N_MAIN = 1_000_000
 N_AOI = 500_000  # BASELINE config 3's AOI scan
 ROOMS_MAIN = 16_384  # the rooms path: 16,384 rooms of 64 NPC rows
+# phase (f)'s batch: 8,192 rooms, a depth cut (16,384 before phase (o));
+# the kernels' room axis (phase 2) and (l)'s sharded rooms keep 16,384
+ROOMS_F = 8_192
 SEED = 0
 DEV = "cuda"
 
@@ -1079,19 +1094,19 @@ def restore_batch(batch, snap) -> None:
 
 
 def phase_rooms():
-    """(f): R = 16,384 rooms on the card.  Returns each kernel's launches on
+    """(f): R = 8,192 rooms on the card.  Returns each kernel's launches on
     the rooms path (engine 1 and engine 2 runs of 30 replayed ticks)."""
     w = rooms_recipe()
     k = w.kernel
     order = k.store.class_order
-    batch = rooms.RoomBatch(k, ROOMS_MAIN)
+    batch = rooms.RoomBatch(k, ROOMS_F)
     packer = rooms.RoomBinPacker(batch.capacity)
 
     def room_of(i):
         return k.state.replace(rng=prng_key(SEED + i, DEV))
 
     t0 = time.perf_counter()
-    for i in range(ROOMS_MAIN):
+    for i in range(ROOMS_F):
         check(batch.admit(packer.alloc(), room_of(i)) == i, "rooms fill slots in order")
     torch.cuda.synchronize()
     admit_s = time.perf_counter() - t0
@@ -1113,7 +1128,7 @@ def phase_rooms():
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches[engine] = {n: kk.launches for n, kk in sck.KERNELS.items()}
-        r = {"tick_ms": secs / 30 * 1e3, "room_ticks_per_s": ROOMS_MAIN * 30 / secs,
+        r = {"tick_ms": secs / 30 * 1e3, "room_ticks_per_s": ROOMS_F * 30 / secs,
              "capture_and_first_tick_s": capture_s,
              "launches_per_tick": batch.costbook.launches_per_replay("rooms.run"),
              "pool_bytes": batch.costbook.entries["rooms.run"].last.get("pool_bytes"),
@@ -1127,7 +1142,7 @@ def phase_rooms():
     w.combat.use_pallas = None
     d1 = runs[1]["digests"]
     check(bool((runs[1]["ticks"] == 30).all()), "every room stamps tick 30")
-    check(len(np.unique(d1)) == ROOMS_MAIN, "the rooms differ")
+    check(len(np.unique(d1)) == ROOMS_F, "the rooms differ")
     for e in (0, 2):
         check(np.array_equal(runs[e]["digests"], d1), f"engine {e} digest lanes equal engine 1's")
     check(launches[1]["combat_fold"] == 30 and launches[1]["fused_neighborhood"] == 0,
@@ -1142,7 +1157,7 @@ def phase_rooms():
               f"(saw {seen} in 10)")
 
     controls = {}
-    for i in (0, ROOMS_MAIN // 2, ROOMS_MAIN - 1):
+    for i in (0, ROOMS_F // 2, ROOMS_F - 1):
         cw = rooms_recipe()
         cw.combat.use_pallas = 1
         cw.kernel.state = cw.kernel.state.replace(rng=prng_key(SEED + i, DEV))
@@ -1177,10 +1192,10 @@ def phase_rooms():
     batch.run(1)
     mark = batch.costbook.mark()
     packer.free(1)
-    new_slot = batch.admit(packer.alloc(), room_of(ROOMS_MAIN + 1))
+    new_slot = batch.admit(packer.alloc(), room_of(ROOMS_F + 1))
     check(new_slot == 1, "create recycles the destroyed room's slot")
     packer.free(2)
-    src = ROOMS_MAIN - 2
+    src = ROOMS_F - 2
     rows_before = int(batch.state.classes["NPC"].alive[src].sum())
     digest_before = batch.digest(src)
     dst = packer.alloc()
@@ -1197,9 +1212,9 @@ def phase_rooms():
     for r in runs.values():
         r.pop("digests")
         r.pop("ticks")
-    emit({"phase": "rooms", "rooms": ROOMS_MAIN, "npc_rows_per_room": 64, "seeded": 32,
+    emit({"phase": "rooms", "rooms": ROOMS_F, "npc_rows_per_room": 64, "seeded": 32,
           "state_bytes": state_bytes, "admit_s": admit_s,
-          "admit_ms_per_room": admit_s / ROOMS_MAIN * 1e3, "digests_equal": True,
+          "admit_ms_per_room": admit_s / ROOMS_F * 1e3, "digests_equal": True,
           "engines": runs, "controls": {str(i): d for i, d in controls.items()},
           "train_vs_tick": {"k": 8, "ticks": 16, "equal": True,
                             "first_two_trains_s": first_trains_s,
@@ -1227,9 +1242,10 @@ def tick_times_rooms(batch, n: int) -> list:
 
 def phase_bench_rooms():
     """(f): the bench's rooms ladder, as a user runs it (a subprocess), at
-    256 and 4,096 rooms: phase (f) itself ticks the 16,384 rung's batch."""
+    256 rooms: phase (f) itself ticks an 8,192-room batch (the 4,096 rung
+    is a depth cut that makes room for phase (o))."""
     cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--rooms",
-           "--rooms-count", "256,4096"]
+           "--rooms-count", "256"]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     check(proc.returncode == 0, f"the rooms bench exits 0 ({proc.stderr[-2000:]})")
@@ -1239,7 +1255,7 @@ def phase_bench_rooms():
           "the rooms bench measured its ticks")
     check(d["all_gates"] and all(p["graph"] for p in d["points"]),
           "the rooms bench's gates hold and its run loop is a graph")
-    check([p["rooms"] for p in d["points"]] == [256, 4096],
+    check([p["rooms"] for p in d["points"]] == [256],
           "the rooms bench ran its ladder")
     emit({"phase": "bench_rooms", "line": line})
 
@@ -1870,15 +1886,16 @@ def phase_aoi_interest(card: str):
 SERVED_N = 100_000
 SERVED_1M = N_MAIN
 SERVED_SESSIONS = 500
-SERVED_FRAMES = 20
+SERVED_FRAMES = 12
 # the engines after batched serve fewer frames (the cuts that make room
 # for phases (l) and (m) in the time limit); train8 keeps whole trains
-SERVED_FRAMES_OF = {"overlap": 10, "train8": 16}
+SERVED_FRAMES_OF = {"overlap": 6, "train8": 8}
 SERVED_WARMUP = 3
+SERVED_BENCH_FRAMES = 30  # the bench line's frames (its default, 90, before the cuts for (o))
 SERVED_RADIUS = 8.0
 FRAME_LIMIT_MS = 1000.0 / 30.0
-PARITY_N, PARITY_SESSIONS, PARITY_FRAMES = 4096, 32, 30
-JOURNAL_FRAMES = 60
+PARITY_N, PARITY_SESSIONS, PARITY_FRAMES = 4096, 32, 15  # 30 before the cuts for (o)
+JOURNAL_FRAMES = 45
 ENGINES = {
     "legacy": {"serve_batch": False},
     "batch": {"serve_batch": True},
@@ -2044,7 +2061,7 @@ def stream_run(n: int, sessions: int, device: str, frames: int, **kw):
 
 
 def journal_run(root, device: str):
-    """60 frames of a journaled served role at PARITY_N (a checkpoint at its
+    """JOURNAL_FRAMES frames of a journaled served role at PARITY_N (a checkpoint at its
     start, client events through the dispatch table): (journal, checkpoint)."""
     from noahgameframe_tpu_torch.net import transport as tr
     from noahgameframe_tpu_torch.net import wire
@@ -2179,7 +2196,8 @@ def phase_served(card: str):
     # the bench line, as a user runs it
     cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--served", "--entities",
            str(SERVED_N), "--sessions", str(SERVED_SESSIONS), "--interest-radius",
-           str(SERVED_RADIUS), "--serve-batch", "--device", DEV]
+           str(SERVED_RADIUS), "--serve-batch", "--ticks", str(SERVED_BENCH_FRAMES),
+           "--device", DEV]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     check(proc.returncode == 0, f"the served bench exits 0 ({proc.stderr[-2000:]})")
@@ -2303,6 +2321,7 @@ def mirror_view(cli) -> dict:
                 plain(o.properties), plain(o.records)) for k, o in sorted(cli.objects.items())}
 
 
+RESELECT_S = 0.5  # the beat before a refused server select is sent again
 LOGIN_STEPS = ("login connect", "login ack", "world list", "world grant", "proxy connect",
                "key verify", "server select", "role list", "enter game")
 
@@ -2395,8 +2414,22 @@ class ClusterDriver:
         """Log each ``(account, role name, game id)`` in through login,
         world, proxy and game, all at once (each client advances as soon
         as its own answer arrives); returns each client's login-to-entered
-        seconds."""
+        seconds.  A server select that the proxy refused (the game is not
+        NORMAL in its pool yet, as between a revived game's registration
+        and the world's next game list) is sent again after a beat, as a
+        client does; a select that succeeded is never sent twice."""
         c = self.c
+        ack_select = int(self.P.defines.MsgID.ACK_SELECT_SERVER)
+        select = LOGIN_STEPS.index("server select")
+        refused = {}  # account -> (select acks seen when it was sent, when)
+
+        def acks(cli):
+            return sum(1 for mid, _b in cli.log if mid == ack_select)
+
+        def reselect(cli, g):
+            refused[cli.account] = (acks(cli), time.perf_counter())
+            cli.select_server(g)
+
         fsm = []
         for account, name, game_id in specs:
             cli = self.client(account)
@@ -2409,7 +2442,7 @@ class ClusterDriver:
                  lambda cli=cli: cli.world_grant is not None),
                 (cli.connect_proxy, lambda cli=cli: cli.connected),
                 (cli.verify_key, lambda cli=cli: cli.key_verified),
-                (lambda cli=cli, g=game_id: cli.select_server(g),
+                (lambda cli=cli, g=game_id: reselect(cli, g),
                  lambda cli=cli: cli.server_selected),
                 (lambda cli=cli, n=name: cli.create_role(n), lambda cli=cli: cli.roles),
                 (lambda cli=cli, n=name: cli.enter_game(n), lambda cli=cli: cli.entered),
@@ -2426,6 +2459,10 @@ class ClusterDriver:
                     else:
                         st[2] = i + 1
                         steps[i + 1][0]()
+                elif done is None and i == select:
+                    seen, t_sent = refused[cli.account]
+                    if acks(cli) > seen and time.perf_counter() - t_sent >= RESELECT_S:
+                        steps[i][0]()
             return all(st[4] is not None for st in fsm)
 
         ok = self.pump_until(advance, timeout)
@@ -2493,132 +2530,34 @@ def pair_flows(d, a, b, game, move=(3.0, 4.0, 0.0)) -> None:
 
 
 
+def failover_script():
+    """scripts/torch_failover_smoke.py as a module: the failover scenario's
+    one copy (its fault plan and its kill and re-home)."""
+    return sys.modules.get("torch_failover_smoke") or port_script("torch_failover_smoke")
+
+
 def failover_plan(P, seed: int):
-    """scripts/failover_smoke.py's fault plan: dups and delays on the dying
-    game's links, dups on the survivor's, and a wedged store flusher under
-    Game1, so its last saves live only in the WAL."""
-    ch = P.chaos
-    return ch.FaultPlan(seed=seed, links={
-        "proxy5.games->6": ch.LinkFaults(dup=0.05, delay=0.05, delay_polls=2),
-        "proxy5.games->16": ch.LinkFaults(dup=0.02),
-        "game6.world": ch.LinkFaults(dup=0.02),
-    }, stores={"game6.store": ch.StoreFaults(fail_first=1_000_000)})
+    """scripts/torch_failover_smoke.py's fault plan (``P``, the port's
+    modules, is the package it is built from): dups and delays on the
+    dying game's links, dups on the survivor's, and a wedged store
+    flusher under Game1, so its last saves live only in the WAL."""
+    return failover_script().fault_plan(seed)
 
 
 def failover_kill(d, game1, game2, clients, kv, wal_dir, after_chats: int = AFTER_CHATS):
-    """scripts/failover_smoke.run's kill and re-home, for ``clients``
-    entered on ``game1`` (a LocalCluster with per-game WAL and checkpoint
-    dirs over the store ``kv``, under :func:`failover_plan`): distinct
+    """scripts/torch_failover_smoke.py's kill and re-home
+    (``kill_rehome``), for ``clients`` entered on ``game1`` of the
+    driver's cluster (per-game WAL and checkpoint dirs over the store
+    ``kv``, under :func:`failover_plan`), pumped by the driver: distinct
     saves staged to the WAL, a checkpoint, a hard kill, numbered chats
     into the outage, and the world's re-home of every session onto
-    ``game2``.  Returns ``(checks, info)``: each check by name, and the
-    blip (kill to last re-home), the parked frames and the bases."""
-    P, c = d.P, d.c
-    proxy, world = c.proxy, c.world
-    checks: dict = {}
-    sess = {cl.account: d.session(game1, cl.account) for cl in clients}
-    selfids = {(s.guid.head, s.guid.data) for s in sess.values() if s is not None}
-    checks["sessions bound on the dying game"] = all(s is not None for s in sess.values())
-    check(checks["sessions bound on the dying game"], "failover: sessions bound")
-    k1, agent1 = game1.kernel, game1.data_agent
-    pre, pre_blob, keys = {}, {}, {}
-    for i, cl in enumerate(clients):
-        s = sess[cl.account]
-        k1.set_property(s.guid, "Gold", 1000 + 37 * i)
-        k1.set_property(s.guid, "Level", 9)
-        pre[cl.account] = {p: k1.get_property(s.guid, p) for p in ("Name", "Level", "Gold")}
-        pre_blob[cl.account] = P.codec.snapshot_object(k1.store, k1.state, s.guid, agent1.flags)
-        agent1.save(s.guid)
-        keys[cl.account] = agent1._key_of(s.guid)
-    game1.checkpoint_now()  # checkpoint + WAL barrier
-    view = P.writebehind.read_peer_wal(wal_dir)
-    checks["WAL holds bit-identical pre-kill blobs"] = all(
-        view.pending.get(keys[a]) == pre_blob[a] for a in keys)
-    checks["store never saw the final saves"] = all(kv.get(keys[a]) != pre_blob[a] for a in keys)
-    done0 = len(world.failover.completed)
-    n = len(clients)
-    t = {"rehomed": None, "max_pending": 0}
-
-    def watch():
-        t["max_pending"] = max(t["max_pending"], world.failover.pending_count())
-        if t["rehomed"] is None and sum(
-                1 for e in world.failover.completed[done0:] if tuple(e["selfid"]) in selfids) >= n:
-            t["rehomed"] = time.perf_counter()
-
-    dead = game1.config.server_id
-    t_kill = time.perf_counter()
-    c.kill_role(game1, hard=True)
-    checks["proxy saw the link drop"] = d.pump_until(
-        lambda: watch() or dead not in proxy.games.connected_servers(), timeout=10.0)
-    # the first chat goes out before the next pump round, so it reaches
-    # the proxy while the binding is dead and parks
-    for cl in clients:
-        cl.chat(f"after-{cl.account}-0")
-    for cl in clients:
-        cl.execute()
-    sent = [1]
-
-    def mine(cl):
-        pre_ = f"after-{cl.account}-"
-        return [x for _w, x in cl.chat_log if x.startswith(pre_)]
-
-    def settled():
-        watch()
-        if sent[0] < after_chats:
-            for cl in clients:
-                cl.chat(f"after-{cl.account}-{sent[0]}")
-            sent[0] += 1
-            return False
-        return (all(d.session(game2, cl.account) is not None for cl in clients)
-                and world.failover.pending_count() == 0 and proxy.parking.depth() == 0
-                and all(len(set(mine(cl))) >= after_chats for cl in clients))
-
-    checks["sessions re-homed to the survivor"] = d.pump_until(settled, timeout=60.0)
-    checks["failover was observable while pending"] = t["max_pending"] > 0
-    for cl in clients:
-        first_seen = list(dict.fromkeys(mine(cl)))  # the chaos link dups frames
-        checks[f"{cl.account} chat replayed complete and in order"] = (
-            first_seen == [f"after-{cl.account}-{i}" for i in range(after_chats)])
-    checks["frames were actually parked"] = proxy.parking.parked_total > 0
-    checks["nf_failover_dropped_total == 0"] = proxy.parking.dropped_total == 0
-    k2 = game2.kernel
-    for cl in clients:
-        s2 = d.session(game2, cl.account)
-        got = None if s2 is None else {p: k2.get_property(s2.guid, p)
-                                       for p in ("Name", "Level", "Gold")}
-        checks[f"{cl.account} state recovered on the survivor"] = got == pre[cl.account]
-        checks[f"{cl.account} rebound to the survivor"] = (
-            s2 is not None
-            and int(k2.get_property(s2.guid, "GameID")) == game2.config.server_id)
-    new = [e for e in world.failover.completed[done0:] if tuple(e["selfid"]) in selfids]
-    # the world also re-homes a player that switched away from the dead
-    # game earlier (a ghost: the origin never sends an offline notice for
-    # a switched player, so its bind info stays; the JAX package does the
-    # same, ROADMAP.md section 3)
-    ghosts = len(world.failover.completed) - done0 - len(new)
-    bases = sorted({e["basis"] for e in new})
-    checks["recovery basis was the WAL suffix"] = len(new) == n and bases == ["wal"]
-    reg = world.telemetry.registry
-    checks["failover counters balanced"] = (
-        reg.value("nf_failover_initiated_total") == reg.value("nf_failover_completed_total")
-        >= n + ghosts)
-    checks["clients got the REHOMING notice"] = all(
-        any(int(x.code) == int(P.defines.SwitchNoticeCode.REHOMING) for x in cl.switch_notices)
-        for cl in clients)
-    checks["zero session drops"] = (all(cl.entered for cl in clients)
-                                    and proxy.parking.dropped_disconnect == 0)
-
-    def fo_settled():
-        fo = c.master.servers_status().get("failover", {})
-        return bool(fo) and all(v.get("pending") == 0 for v in fo.values() if "pending" in v)
-
-    checks["master /json failover block"] = d.pump_until(fo_settled, timeout=10.0)
-    page = json.loads(http_get(c, c.master.http.port, "/json", d._stir))
-    checks["/json serves the failover block over HTTP"] = "failover" in page
-    info = {"sessions": n, "blip_ms": None if t["rehomed"] is None
-            else (t["rehomed"] - t_kill) * 1e3,
-            "parked_frames": proxy.parking.parked_total, "bases": bases,
-            "max_pending": t["max_pending"], "ghost_rehomes": ghosts}
+    ``game2``.  Returns ``(checks, info)``: each check by the script's
+    name, and the blip (kill to last re-home), the parked frames, the
+    bases and the ghost re-homes."""
+    checks, info = failover_script().kill_rehome(
+        d.c, game1, game2, clients, kv, wal_dir,
+        lambda cond, t: d.pump_until(cond, timeout=t), d._stir, after_chats=after_chats)
+    check(checks["sessions bound on game 6"], "failover: sessions bound")
     return checks, info
 
 
@@ -3679,7 +3618,7 @@ def phase_middleware(card: str):
 
 # -- (l) the multi-device layer ----------------------------------------------------------
 MESH_SHARDS = 4
-MESH_TICKS = 30
+MESH_TICKS = 16  # two whole trains of K = 8 (30 before the cuts for phase (o))
 MESH_TRAIN_K = 8
 # a bank of 3 x 2^19 rows divides the 2-, 3- and 4-shard meshes of the
 # grow and the drain; a third full, so the drained shard's rows fit
@@ -4124,7 +4063,9 @@ def phase_mesh(card: str):
 # -- (m) the game-day drill ----------------------------------------------------------
 DRILL_SEED = 7
 DRILL_SESSIONS, DRILL_CHATS = 40, 5  # scripts/gameday_smoke.py's full campaign
-RESHARD_SESSIONS, RESHARD_CHATS = 12, 4  # scripts/reshard_smoke.py's
+# scripts/reshard_smoke.py's short campaign (its full 12 sessions and 4
+# chats before the cuts for phase (o))
+RESHARD_SESSIONS, RESHARD_CHATS = 4, 2
 
 
 def port_script(name: str):
@@ -4177,8 +4118,8 @@ def phase_drill(card: str):
        control's world after the run with every fold held against its
        plain version.  The re-home time, the longest pump round, the
        checkpoint's save and load seconds.
-    3. scripts/torch_reshard_smoke.py's campaign at the JAX script's full
-       size (12 sessions, 4 chats) on virtual meshes of ``cuda:0`` (2 ->
+    3. scripts/torch_reshard_smoke.py's campaign at the JAX script's
+       short size (4 sessions, 2 chats) on virtual meshes of ``cuda:0`` (2 ->
        4 -> 3 shards and the 1-shard control): every check holds, and
        ``StableUnderReshard``'s digest clause against the control with
        it."""
@@ -4693,17 +4634,28 @@ def five_processes(root: str, device: str) -> dict:
                 pr.wait()
         for log in logs:
             log.close()
+    # the replays on each device read the same journal and checkpoint:
+    # both processes run at once
     out["replay"] = {}
-    for on in dict.fromkeys((device, "cpu")):
-        t1 = time.perf_counter()
-        r = subprocess.run([sys.executable, launcher, "--role", "game", "--id", "6", *common,
-                            "--device", on, "--replay", journal, "--checkpoint-dir", ckpt],
-                           capture_output=True, text=True, cwd=HERE, env=env, timeout=300)
-        check(r.returncode == 0 and "REPLAY OK" in r.stdout,
-              f"the game's journal replays digest-clean on {on} "
-              f"({r.stdout[-800:]} {r.stderr[-1500:]})")
-        out["replay"][on] = {"seconds": time.perf_counter() - t1,
-                             "summary": r.stdout.strip().splitlines()[-1]}
+    t1 = time.perf_counter()
+    replays = {on: subprocess.Popen(
+        [sys.executable, launcher, "--role", "game", "--id", "6", *common,
+         "--device", on, "--replay", journal, "--checkpoint-dir", ckpt],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE, env=env)
+        for on in dict.fromkeys((device, "cpu"))}
+    try:
+        for on, pr in replays.items():
+            stdout, stderr = pr.communicate(timeout=300)
+            check(pr.returncode == 0 and "REPLAY OK" in stdout,
+                  f"the game's journal replays digest-clean on {on} "
+                  f"({stdout[-800:]} {stderr[-1500:]})")
+            out["replay"][on] = {"seconds": time.perf_counter() - t1,
+                                 "summary": stdout.strip().splitlines()[-1]}
+    finally:
+        for pr in replays.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
     return out
 
 
@@ -4776,6 +4728,164 @@ def phase_examples(card: str):
     return launches, {nm: e for nm, (_c, e) in held.items()}
 
 
+# -- (o) the script drivers ---------------------------------------------------------
+SCRIPT_SEED = 7
+SURGE_ROUNDS = 40  # scripts/failover_smoke.py's default
+ROOFLINE = {"entities": 20_000, "sessions": 32, "ticks": 120}  # scripts/roofline_report.py's
+TRACE_TICKS = 3  # scripts/capture_trace.py's 1M capture
+EXPORT_TICKS = 30  # scripts/export_trace.py ticks 100; 30 here is a depth cut
+
+
+def script_checks(name: str, fn) -> dict:
+    """One script run: every check must hold; returns its checks (name ->
+    verdict) and seconds."""
+    t0 = time.perf_counter()
+    checks = fn()
+    seconds = time.perf_counter() - t0
+    failed = [k for k, ok in checks.items() if not ok]
+    check(not failed, f"{name}: every check holds ({failed})")
+    return {"checks": checks, "seconds": seconds}
+
+
+def phase_scripts(card: str):
+    """(o): the script drivers (run last, ``phase_scripts``), each on
+    ``cuda`` at the JAX script's size.
+
+    1. The cluster smokes: scripts/torch_chaos_smoke.py, the failover
+       smoke's ``run`` and ``surge`` (40 round trips), the persist, replay
+       and pipeline smokes; each script's checks (all must hold) and
+       seconds.
+    2. scripts/torch_costbook_smoke.py, with the served game's
+       ``kernel.step`` cost record (flops, bytes accessed, temp bytes).
+    3. scripts/torch_roofline_report.py at the JAX defaults (20,000
+       entities, 32 sessions, 120 ticks, ``NF_STAGE_TIMING=1``) folded
+       against ``PEAKS["gpu"]``: each stage's achieved fractions.
+    4. scripts/torch_telemetry_smoke.py.
+    5. scripts/torch_export_trace.py (1,024 entities, 100 ticks, a
+       ``torch.profiler`` capture; 30 ticks, not the script's 100) under
+       engines 1 and 2, and
+       scripts/torch_capture_trace.py (1M, 3 graph ticks) under engines 1
+       and 2: every trace file exists and its profile names
+       ``combat_fold`` (engine 1) or ``fused_neighborhood`` (engine 2).
+
+    The kernel table gains each kernel's launches in this phase
+    (``scripts_launches``); one eager tick of a 20,000-entity world under
+    each engine then holds every fold against its plain version.  Returns
+    the launches and each kernel's error there."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="nf_scripts_")
+    out = {"phase": "scripts", "card": card}
+    sck.reset_launch_counts()
+    try:
+        def tmp(name: str) -> str:
+            d = os.path.join(root, name)
+            os.makedirs(d, exist_ok=True)
+            return d
+
+        chaos = port_script("torch_chaos_smoke")
+        out["chaos"] = script_checks("torch_chaos_smoke", lambda: chaos.run(
+            tmp("chaos"), seed=SCRIPT_SEED, device=DEV))
+        fo = failover_script()
+        out["failover"] = script_checks("torch_failover_smoke", lambda: fo.run(
+            tmp("failover"), seed=SCRIPT_SEED, device=DEV))
+        surge_line = os.path.join(root, "surge.json")
+        out["surge"] = script_checks("torch_failover_smoke --surge", lambda: fo.surge(
+            tmp("surge"), rounds=SURGE_ROUNDS, out_path=surge_line, device=DEV))
+        with open(surge_line) as f:
+            out["surge"]["line"] = json.load(f)
+        for name in ("persist", "replay"):
+            mod = port_script(f"torch_{name}_smoke")
+            out[name] = script_checks(f"torch_{name}_smoke", lambda mod=mod, name=name: mod.run(
+                tmp(name), seed=SCRIPT_SEED, device=DEV))
+        pipe = port_script("torch_pipeline_smoke")
+        out["pipeline"] = script_checks("torch_pipeline_smoke", lambda: pipe.run(
+            tmp("pipeline"), device=DEV))
+        cost = port_script("torch_costbook_smoke")
+        step_path = os.path.join(root, "step.json")
+        out["costbook"] = script_checks("torch_costbook_smoke", lambda: cost.run(
+            device=DEV, out_path=step_path))
+        with open(step_path) as f:
+            step = json.load(f)["kernel.step"]
+        out["costbook"]["kernel_step"] = {k: step["last"].get(k) for k in (
+            "flops", "bytes_accessed", "temp_bytes", "cost_ops", "cost_ms", "uncounted_ops",
+            "graph", "launches_per_replay")}
+        out["costbook"]["kernel_step"]["capture_ms_total"] = step["capture_ms_total"]
+        check(step["last"].get("graph") and step["last"]["flops"] > 0
+              and step["last"]["temp_bytes"] > 0, f"the served kernel.step is costed ({step})")
+        free()
+
+        t0 = time.perf_counter()
+        roof = port_script("torch_roofline_report").run(**ROOFLINE, device=DEV)
+        stages = roof["roofline"]["stages"]
+        check("tick" in stages and stages["tick"]["frac_of_peak_bytes"] > 0
+              and not roof["roofline"]["provisional"],
+              f"the roofline folds the tick stage against the card's peaks ({stages})")
+        out["roofline"] = {"seconds": time.perf_counter() - t0, "peaks": roof["roofline"]["peaks"],
+                           "frames": roof["roofline"]["frames"],
+                           "kernel_step": roof["kernel_step"],
+                           "stages": {st: {k: v[k] for k in (
+                               "entries", "flops_per_frame", "bytes_per_frame",
+                               "device_s_per_frame", "achieved_flops_per_s",
+                               "achieved_bytes_per_s", "frac_of_peak_flops",
+                               "frac_of_peak_bytes")} for st, v in stages.items()}}
+        free()
+        tele = port_script("torch_telemetry_smoke")
+        out["telemetry"] = script_checks("torch_telemetry_smoke", lambda: tele.run(device=DEV))
+
+        export = port_script("torch_export_trace")
+        capture = port_script("torch_capture_trace")
+        out["export_trace"], out["capture_trace"] = {}, {}
+        for engine, kname in ((1, "combat_fold"), (2, "fused_neighborhood")):
+            t0 = time.perf_counter()
+            os.environ["NF_PALLAS"] = str(engine)
+            try:
+                info = export.run(ticks=EXPORT_TICKS, out=os.path.join(root, f"spans{engine}.json"),
+                                  profile=os.path.join(root, f"prof{engine}"), device=DEV)
+            finally:
+                os.environ.pop("NF_PALLAS", None)
+            check(os.path.getsize(info["out"]) > 0 and info["spans"] > EXPORT_TICKS,
+                  f"the export trace's span file (engine {engine})")
+            named = capture.kernels_named(info["profile"])
+            check(named[kname] > 0, f"the export profile names {kname} ({named})")
+            out["export_trace"][f"engine{engine}"] = {
+                "spans": info["spans"], "kernels_named": named,
+                "seconds": time.perf_counter() - t0}
+            free()
+            t0 = time.perf_counter()
+            cap = capture.run(ticks=TRACE_TICKS, engine=engine,
+                              out=os.path.join(root, f"trace{engine}.tar.gz"), device=DEV)
+            check(cap["bytes"] > 0 and cap["kernels_named"][kname] > 0,
+                  f"the 1M capture names {kname} ({cap})")
+            out["capture_trace"][f"engine{engine}"] = {
+                **{k: cap[k] for k in ("entities", "ticks", "traced_wall_s", "bytes",
+                                       "kernels_named")},
+                "seconds": time.perf_counter() - t0}
+            free()
+        launches = {nm: kk.launches for nm, kk in sck.KERNELS.items()}
+        check(launches["combat_fold"] > 0 and launches["fused_neighborhood"] > 0,
+              f"both kernels launched by the scripts ({launches})")
+        w = gw.build_benchmark_world(ROOFLINE["entities"], seed=SCRIPT_SEED, device=DEV)
+        k = w.kernel
+        k.set_graph_tick(False)
+        held = {"combat_fold": held_against_plain(k.tick)["combat_fold"]}
+        os.environ["NF_PALLAS"] = "2"
+        try:
+            held["fused_neighborhood"] = held_against_plain(k.tick)["fused_neighborhood"]
+        finally:
+            os.environ.pop("NF_PALLAS", None)
+        for nm, (calls, err) in held.items():
+            check(calls == 1 and err == 0, f"the scripts' world's {nm} equals its plain version")
+        del w, k
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["held_against_plain"] = {nm: {"calls": c, "max_abs_err": e} for nm, (c, e) in held.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    free()
+    return launches, {nm: e for nm, (_c, e) in held.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4824,6 +4934,8 @@ def main() -> int:
     drill_launches, drill_err = phase_drill(card)
     free()
     examples_launches, examples_err = phase_examples(card)
+    free()
+    scripts_launches, scripts_err = phase_scripts(card)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"
@@ -4836,7 +4948,8 @@ def main() -> int:
          "replaces": sck.KERNELS[name].replaces,
          "launches": launches[name],
          "max_abs_err": max(max_err[name], room_err[name], mesh_err[name],
-                            drill_err if name == "combat_fold" else 0, examples_err[name]),
+                            drill_err if name == "combat_fold" else 0, examples_err[name],
+                            scripts_err[name]),
          "ms": timing[name]["ms"], "eager_ms": timing[name]["eager_ms"],
          "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
@@ -4849,6 +4962,7 @@ def main() -> int:
          "sharded_launches": mesh_launches[name],
          "drill_launches": drill_launches[name],
          "examples_launches": examples_launches[name],
+         "scripts_launches": scripts_launches[name],
          "rooms_launches": rooms_launches[name], "rooms_ms": room_timing[name]["ms"],
          "rooms_eager_ms": room_timing[name]["eager_ms"],
          "rooms_plain_ms": room_timing[name]["plain_ms"],

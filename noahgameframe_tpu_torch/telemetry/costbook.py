@@ -1,4 +1,4 @@
-"""CostBook: the capture and launch ledger of the tick's entry points.
+"""CostBook: the capture, launch and cost ledger of the tick's entry points.
 
 Counterpart of ``noahgameframe_tpu/telemetry/costbook.py``.  There, every
 jit entry compiles through :meth:`CostBook.wrap` and the book records
@@ -17,17 +17,56 @@ skin, ...), and on a miss captures the step anew.  Per entry it records:
 - the device launches of one replay: the kernel, copy and fill nodes of
   the captured graph, counted with ``cuGraphGetNodes``;
 - the graph pool's bytes (``torch.cuda.memory_reserved`` grown by the
-  capture) and ``torch.cuda.max_memory_allocated`` after it.
+  capture) and ``torch.cuda.max_memory_allocated`` after it;
+- the step's cost, under the JAX package's key names: ``flops``,
+  ``bytes_accessed`` and ``temp_bytes`` (see below).
 
-XLA's FLOPs and bytes have no counterpart and are not recorded.  On the
-CPU nothing is captured: the entry runs the eager step, and every
+On the CPU nothing is captured: the entry runs the eager step, and every
 signature miss is still recorded with its cause (``graph: false``).
 
+**The cost count** is the port's counterpart of XLA's
+``cost_analysis()``.  On every signature miss one run of the step goes
+through :class:`CostCounter`, a ``TorchDispatchMode`` that sees each
+aten (and ``nf::``) op the step dispatches: on a CUDA device it is the
+first warm-up run before the capture, on the CPU the first eager run,
+so the count adds no run of its own.  It follows ``HloCostAnalysis`` as
+far as a count per aten op allows:
+
+- ``flops``: one per output element for elementwise arithmetic (ops
+  tagged ``pointwise``, comparisons and selects included); one per
+  input element for a reduction (ops tagged ``reduction``, cumulative
+  sums, and the accumulating scatters ``scatter_add``,
+  ``scatter_reduce`` and ``index_add``, one per source element); the
+  formulas of ``torch.utils.flop_counter`` for matmuls (``2 m n k``, per
+  batch for ``bmm``); ``n * ceil(log2 n)`` comparisons for a sort along an
+  axis of ``n``; 0 for pure data movement (copies, casts, gathers,
+  scatters, concatenation, fills, factories, views).
+- ``bytes_accessed``: the bytes of every tensor operand plus the bytes
+  of every output, per op.  A view (an output that aliases an operand
+  without writing it) and an uninitialised factory (``empty``) move
+  none.  The custom ops ``nf::combat_fold``, ``nf::fused_neighborhood``
+  and ``nf::slot_rows`` are counted by the same rule; their flops have
+  no rule.  The ``profiler::`` range markers (the ``nf.*`` ranges) count
+  nothing.  Under ``torch.func.vmap`` (the rooms engine) a custom op's
+  batching rule launches the kernel without dispatching the op, so on
+  a CUDA device a vmapped fold's bytes are not seen.
+- ``temp_bytes``: the peak allocated during the counted run, less its
+  inputs and outputs.  On a CUDA device that is
+  ``torch.cuda.max_memory_allocated`` around the run (its peak
+  statistic is reset first, so a caller that wants a peak across a
+  capture reads it afterwards); on the CPU, the counter's running total
+  of live intermediates (each new storage an op returns, held until the
+  last tensor the step got from an op on it is freed).
+
+An op with no rule is counted as data movement (0 flops, its bytes
+counted) and listed by name in ``last["uncounted_ops"]``; nothing is
+dropped.  The CPU runs a fold's plain version where a CUDA device
+launches the hand kernel, so the two devices' counts of one step
+differ by design.
+
 :func:`roofline_fold` joins an entry's FLOPs and bytes with the stage
-clock's device seconds, as in the JAX package.  An entry folds only when
-its ``last`` record carries a cost (``flops`` or ``bytes_accessed``), and
-no capture record does, so on the port the fold yields no stages until a
-per-entry cost model fills them in.
+clock's device seconds, as in the JAX package.  An entry folds when its
+``last`` record carries a cost (``flops`` or ``bytes_accessed``).
 
 Sanctioned re-captures call :meth:`generation_bump`; ``mark()`` /
 ``unexplained_since(mark)`` is the soak gate that finds the others.
@@ -37,14 +76,18 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import math
 import time
+import weakref
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.tree import flatten, unflatten
 
-__all__ = ["CostBook", "CostEntry", "roofline_fold", "PEAKS", "HBM_SAMPLE_FRAMES"]
+__all__ = ["CostBook", "CostEntry", "CostCounter", "count_cost", "roofline_fold", "PEAKS",
+           "HBM_SAMPLE_FRAMES"]
 
 #: re-capture events kept in the book's ring
 _EVENT_RING = 128
@@ -73,6 +116,239 @@ def _leaf_sig(x) -> Tuple:
     if isinstance(x, torch.Tensor):
         return (tuple(x.shape), str(x.dtype), str(x.device))
     return ("py", type(x).__name__, repr(x))
+
+
+# -- the cost count -------------------------------------------------------------
+
+_aten = torch.ops.aten
+#: ops that move or make data and compute nothing (0 flops), beyond views
+_MOVES = frozenset({
+    "clone", "_to_copy", "copy", "copy_", "contiguous", "cat", "stack", "index",
+    "index_select", "gather", "scatter", "index_put", "index_put_", "_index_put_impl_",
+    "masked_select", "take", "fill", "fill_", "zero_", "zeros", "zeros_like", "ones",
+    "ones_like", "full", "full_like", "new_zeros", "new_ones", "new_full", "scalar_tensor",
+    "arange", "repeat", "flip", "roll", "constant_pad_nd", "lift_fresh", "lift_fresh_copy",
+    "_local_scalar_dense", "nonzero", "resize_", "set_", "randperm", "bernoulli_",
+    "_unsafe_index", "index_copy", "index_copy_", "slice_scatter", "select_scatter",
+    "diagonal_scatter", "tril", "triu", "unique_dim", "_unique2", "unique_consecutive",
+    "bucketize", "searchsorted", "_pin_memory", "to", "record_stream", "split_with_sizes_copy",
+})
+#: reductions by name (``Tag.reduction`` is the rule; these are its others)
+_REDUCES = frozenset({
+    "sum", "mean", "amax", "amin", "max", "min", "prod", "any", "all", "argmax", "argmin",
+    "cumsum", "cumprod", "cummax", "cummin", "logsumexp", "var", "std", "norm",
+    "count_nonzero", "aminmax", "nansum", "logcumsumexp", "_cummax_helper", "_cummin_helper",
+})
+#: accumulating scatters: one flop per source element
+_ACCUMULATES = frozenset({"scatter_add", "scatter_add_", "scatter_reduce", "scatter_reduce_",
+                          "index_add", "index_add_", "index_reduce", "index_reduce_"})
+_SORTS = frozenset({"sort", "argsort", "topk", "kthvalue", "msort"})
+_EMPTY = frozenset({"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+                    "empty_permuted"})
+_POINTWISE = torch.Tag.pointwise
+_REDUCTION = getattr(torch.Tag, "reduction", None)
+
+
+def _tensors(tree, out: Optional[List[torch.Tensor]] = None) -> List[torch.Tensor]:
+    """The tensors in an op's arguments or results (tuples, lists and
+    dicts of them)."""
+    if out is None:
+        out = []
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _storage_key(t: torch.Tensor):
+    return (t.device.type, t.device.index, t.untyped_storage().data_ptr())
+
+
+def _mm_flops(a, b, *_rest, **_kw) -> float:
+    """``2 m n k`` for ``[m, k] @ [k, n]``."""
+    return 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+
+
+def _bmm_flops(a, b, *_rest, **_kw) -> float:
+    """``2 b m n k`` for ``[b, m, k] @ [b, k, n]``."""
+    return 2.0 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+
+
+#: the matmul formulas of ``torch.utils.flop_counter`` (written out here:
+#: importing that module pulls in torch._dynamo and sympy, seconds of a
+#: process's start); each takes the op's arguments
+_MATMULS: Dict[str, Callable] = {
+    "mm": _mm_flops,
+    "addmm": lambda _bias, a, b, *_r, **_k: _mm_flops(a, b),
+    "bmm": _bmm_flops,
+    "baddbmm": lambda _bias, a, b, *_r, **_k: _bmm_flops(a, b),
+}
+
+
+#: each op's rule, worked out once: (qualified name, rule, moves bytes)
+_RULES: Dict[Any, Tuple[str, Optional[str], bool]] = {}
+
+
+def _rule(func) -> Tuple[str, Optional[str], bool]:
+    """``func``'s qualified name, its flop rule (``"none"`` for 0 flops,
+    ``"matmul"``, ``"accumulate"``, ``"pointwise"``, ``"reduce"``,
+    ``"sort"``, or None where no rule applies) and whether it moves
+    bytes (a view, an uninitialised factory and a profiler range move
+    none)."""
+    r = _RULES.get(func)
+    if r is None:
+        name = func.overloadpacket.__name__
+        view = any(ret.alias_info is not None and not ret.alias_info.is_write
+                   for ret in func._schema.returns)
+        marker = func.namespace == "profiler"
+        tags = func.tags
+        if view or marker or name in _MOVES:
+            kind = "none"
+        elif name in _MATMULS:
+            kind = "matmul"
+        elif name in _ACCUMULATES:
+            kind = "accumulate"
+        elif _POINTWISE in tags:
+            kind = "pointwise"
+        elif (_REDUCTION is not None and _REDUCTION in tags) or name in _REDUCES:
+            kind = "reduce"
+        elif name in _SORTS:
+            kind = "sort"
+        else:
+            kind = None
+        r = _RULES[func] = (f"{func.namespace}::{name}", kind,
+                            not (view or marker or name in _EMPTY))
+    return r
+
+
+def _flops(kind: str, qual: str, args, kwargs, ins, outs) -> float:
+    """The flops of one op under its rule ``kind``."""
+    if kind == "none":
+        return 0.0
+    if kind == "pointwise":
+        return float(outs[0].numel()) if outs else 0.0
+    if kind == "reduce":
+        return float(ins[0].numel()) if ins else 0.0
+    if kind == "accumulate":
+        return float(ins[-1].numel())  # the source, the op's last tensor
+    if kind == "matmul":
+        return _MATMULS[qual.split("::")[1]](*args, **kwargs)
+    # a sort along an axis of n: n * ceil(log2 n) comparisons
+    if not ins:
+        return 0.0
+    x = ins[0]
+    dim = args[1] if len(args) > 1 and isinstance(args[1], int) else kwargs.get("dim", -1)
+    n = x.shape[dim] if x.dim() else 1
+    return float(x.numel() * max(1, math.ceil(math.log2(max(n, 1)))))
+
+
+class CostCounter(TorchDispatchMode):
+    """Counts the flops, bytes accessed and live intermediates of the ops
+    run under it, by the module's rules.  ``inputs``: the tensors the
+    counted step was given (their storages are not intermediates).
+    ``track_live``: follow the live intermediates (the CPU's
+    ``temp_bytes``)."""
+
+    def __init__(self, inputs: Iterable[torch.Tensor] = (), track_live: bool = True) -> None:
+        super().__init__()
+        self.flops = 0.0
+        self.bytes_accessed = 0.0
+        self.ops = 0
+        self.uncounted: Dict[str, int] = {}
+        self.track_live = track_live
+        self._base = {_storage_key(t) for t in inputs}
+        self._live: Dict[Any, List[int]] = {}  # storage key -> [bytes, tensors held]
+        self.live_bytes = 0
+        self.peak_bytes = 0
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # nothing under this mode is compiled: left to torch, the handler
+        # is wrapped to skip dynamo, and its first op imports torch._dynamo
+        # (seconds of a process's first capture)
+        return False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        qual, kind, moves = _rule(func)
+        ins = _tensors((args, kwargs))
+        outs = _tensors(out)
+        self.ops += 1
+        if moves:
+            self.bytes_accessed += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        if kind is None:
+            self.uncounted[qual] = self.uncounted.get(qual, 0) + 1
+        else:
+            self.flops += _flops(kind, qual, args, kwargs, ins, outs)
+        if self.track_live:
+            for t in outs:
+                self._hold(t)
+        return out
+
+    def _hold(self, t: torch.Tensor) -> None:
+        key = _storage_key(t)
+        if key in self._base or key[2] == 0:
+            return
+        rec = self._live.get(key)
+        if rec is None:
+            rec = self._live[key] = [t.untyped_storage().nbytes(), 0]
+            self.live_bytes += rec[0]
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        rec[1] += 1
+        weakref.finalize(t, self._release, key)
+
+    def _release(self, key) -> None:
+        rec = self._live.get(key)
+        if rec is None:
+            return
+        rec[1] -= 1
+        if rec[1] == 0:
+            self.live_bytes -= rec[0]
+            del self._live[key]
+
+
+def count_cost(fn: Callable, state) -> Tuple[Any, Dict[str, Any]]:
+    """Run ``fn(state)`` once under a :class:`CostCounter`; returns its
+    result and the cost record (``flops``, ``bytes_accessed``,
+    ``temp_bytes``, ``cost_ops``, the counted run's wall ``cost_ms`` and
+    ``uncounted_ops``), by the module's rules."""
+    leaves = _tensors(flatten(state)[0])
+    cuda = next((t.device for t in leaves if t.is_cuda), None)
+    base_keys = {_storage_key(t) for t in leaves}
+    if cuda is not None:
+        torch.cuda.synchronize(cuda)
+        before = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+    counter = CostCounter(leaves, track_live=cuda is None)
+    t0 = time.perf_counter()
+    with counter:
+        result = fn(state)
+    new_out, seen = 0, set(base_keys)
+    for t in _tensors(flatten(result)[0]):
+        key = _storage_key(t)
+        if key not in seen:
+            seen.add(key)
+            new_out += t.untyped_storage().nbytes()
+    if cuda is not None:
+        torch.cuda.synchronize(cuda)
+        peak = torch.cuda.max_memory_allocated(cuda) - before
+    else:
+        peak = counter.peak_bytes
+    cost = {"flops": counter.flops, "bytes_accessed": counter.bytes_accessed,
+            "temp_bytes": max(0, int(peak) - new_out), "cost_ops": counter.ops,
+            "cost_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            "uncounted_ops": dict(sorted(counter.uncounted.items()))}
+    return result, cost
 
 
 class CostEntry:
@@ -133,17 +409,25 @@ class CostEntry:
 
 
 class _Eager:
-    """An entry's step run as it is (the CPU, or a graph-less entry)."""
+    """An entry's step run as it is (the CPU, or a graph-less entry).  Its
+    first run goes through :func:`count_cost`, and the cost lands in
+    ``rec`` (the entry's ``last`` record)."""
 
     graph = False
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, rec: Optional[Dict[str, Any]] = None):
         self.fn = fn
+        self.rec = rec
 
     def run(self, state, leaves, times: int):
         out = None
         for _ in range(times):
-            state, out = self.fn(state)
+            if self.rec is not None:
+                (state, out), cost = count_cost(self.fn, state)
+                self.rec.update(cost)
+                self.rec = None
+            else:
+                state, out = self.fn(state)
         return state, out
 
 
@@ -196,8 +480,11 @@ class _Graph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
-                fn(self.state)  # functional: the results are dropped
+            # functional: the results are dropped; the first is counted
+            _out, self.cost = count_cost(fn, self.state)
+            del _out
+            for _ in range(WARMUP_RUNS - 1):
+                fn(self.state)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         # a dropped graph that only a reference cycle still holds must not
@@ -295,6 +582,10 @@ class CostBook:
         self._seq = 0
         self.hbm: Dict[str, Any] = {}
         self._hbm_samples = 0
+        #: live bytes of what the book's entries run on, for the census
+        #: without a CUDA device (set by the telemetry module)
+        self.host_census: Optional[Callable[[], int]] = None
+        self._host_peak = 0
 
     def entry(self, name: str, stage: Optional[str] = None) -> CostEntry:
         e = self.entries.get(name)
@@ -341,10 +632,12 @@ class CostBook:
         cause = entry.attribute(sig, paths)
         on_cuda = any(isinstance(x, torch.Tensor) and x.is_cuda for x in flatten(state)[0])
         t0 = time.perf_counter()
+        rec: Dict[str, Any] = {}
         if graph and on_cuda:
             runner = _Graph(fn, state, counters)
+            rec.update(runner.cost)
         else:
-            runner = _Eager(fn)
+            runner = _Eager(fn, rec)
         capture_s = time.perf_counter() - t0
         entry._last_sig = sig
         entry._last_paths = paths
@@ -352,11 +645,11 @@ class CostBook:
         entry.capture_s_total += capture_s
         if cause != "first":
             entry.causes[cause] = entry.causes.get(cause, 0) + 1
-        rec: Dict[str, Any] = {
+        rec.update({
             "entry": entry.name, "cause": cause, "generation": self.generation,
             "seq": self._seq, "graph": runner.graph,
             "capture_ms": round(capture_s * 1e3, 3), "statics": dict(sig[2]),
-        }
+        })
         if runner.graph:
             rec.update(pool_bytes=runner.pool_bytes, max_allocated_bytes=runner.max_allocated,
                        copy_backs=runner.copy_backs,
@@ -395,8 +688,12 @@ class CostBook:
     # -- device memory census ------------------------------------------------
 
     def hbm_sample(self, device=None) -> Dict[str, Any]:
-        """The allocator's live, peak and total bytes of a CUDA device;
-        on a machine without one, zeros with source ``none``."""
+        """The allocator's live, peak and total bytes of a CUDA device; on
+        a machine without one, the live bytes :attr:`host_census` reports
+        (the attached world's state tensors, source ``state_tensors``,
+        the counterpart of the JAX package's ``live_arrays`` fallback)
+        with the peak this book has seen, or zeros with source ``none``
+        when nothing is attached."""
         self._hbm_samples += 1
         if torch.cuda.is_available():
             dev = torch.device("cuda" if device is None else device)
@@ -405,6 +702,11 @@ class CostBook:
                         "peak_bytes": torch.cuda.max_memory_allocated(dev),
                         "limit_bytes": total, "source": "torch.cuda",
                         "samples": self._hbm_samples}
+        elif self.host_census is not None:
+            live = int(self.host_census())
+            self._host_peak = max(self._host_peak, live)
+            self.hbm = {"live_bytes": live, "peak_bytes": self._host_peak, "limit_bytes": 0,
+                        "source": "state_tensors", "samples": self._hbm_samples}
         else:
             self.hbm = {"live_bytes": 0, "peak_bytes": 0, "limit_bytes": 0,
                         "source": "none", "samples": self._hbm_samples}

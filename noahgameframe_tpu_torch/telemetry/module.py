@@ -226,6 +226,7 @@ class TelemetryModule(Module):
         self.tick.kernel = kernel
         kernel.tracer = self.tracer
         self.costbook = kernel.costbook
+        self.costbook.host_census = self.census.device_bytes
         reg = self.registry
         reg.register_callback(
             "nf_ticks_total", lambda: kernel.tick_count, kind="counter",

@@ -11,6 +11,7 @@ import time
 import pytest
 
 from test_torch_middleware import PKGS
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def actor_offload_and_marshal_back(P):

@@ -26,6 +26,7 @@ from noahgameframe_tpu_torch.ops import aoi as ta
 from noahgameframe_tpu_torch.ops import geometry as tg
 from noahgameframe_tpu_torch.ops import interest as ti
 from noahgameframe_tpu_torch.ops.verlet import init_cache as tinit
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 SEEDS = [0, 1, 2]
 EXTENT, CELL, WIDTH, BUCKET, RADIUS = 60.0, 4.0, 15, 12, 4.0

@@ -8,6 +8,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DETAIL_KEYS = {

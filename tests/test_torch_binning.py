@@ -13,6 +13,7 @@ from noahgameframe_tpu.game.world import build_benchmark_world as jax_world
 from noahgameframe_tpu.ops import stencil as jst
 from noahgameframe_tpu_torch.game.world import build_benchmark_world as torch_world
 from noahgameframe_tpu_torch.ops import stencil as tst
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def _case(seed, n, width, cell, p_active=0.85, p_sub=0.3):

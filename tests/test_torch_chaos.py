@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 import chip_smoke as cs
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 NPCS = 8
 SEED = 7

@@ -26,6 +26,7 @@ import noahgameframe_tpu_torch.net.transport as ttransport
 import noahgameframe_tpu_torch.net.wire as twire
 from noahgameframe_tpu_torch.net.defines import MsgID
 from noahgameframe_tpu_torch.telemetry.pipeline import TraceContext, decode_trace, encode_trace
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 PKGS = {
     "jax": (jsdk, jwire, jtransport, jdefines),

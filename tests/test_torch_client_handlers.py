@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import pytest
 
 from test_torch_middleware import WireRig, run_both
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 ACCOUNTS = ("alice", "bob", "carol", "gina", "erin", "frank", "hana", "mallory", "eve")
 GUID_PIN = 5_000_000

@@ -20,6 +20,7 @@ from __future__ import annotations
 import pytest
 
 import chip_smoke as cs
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 PINS = {"Game1": 5_000_000, "Game2": 6_000_000}
 

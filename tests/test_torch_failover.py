@@ -35,6 +35,7 @@ import noahgameframe_tpu_torch.net.failover as tfo
 import noahgameframe_tpu_torch.net.transport as ttr
 import noahgameframe_tpu_torch.net.wire as twire
 import noahgameframe_tpu_torch.telemetry.registry as treg
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 PKGS = {
     "jax": SimpleNamespace(name="noahgameframe_tpu", fo=jfo, chaos=jchaos, defines=jdefines,

@@ -35,6 +35,7 @@ import noahgameframe_tpu_torch.net.roles.base as tbase
 import noahgameframe_tpu_torch.net.roles.game as tgame
 import noahgameframe_tpu_torch.net.transport as ttransport
 import noahgameframe_tpu_torch.net.wire as twire
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 N_NPC = 2048
 SESSIONS = 16

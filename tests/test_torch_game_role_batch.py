@@ -7,6 +7,7 @@ from __future__ import annotations
 import pytest
 
 from test_torch_game_role import both, check_streams, check_worlds
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=("batch", "overlap"))

@@ -8,6 +8,7 @@ from __future__ import annotations
 import pytest
 
 from test_torch_middleware import run_both
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def hero_world(rig):

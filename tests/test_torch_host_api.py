@@ -30,6 +30,7 @@ from noahgameframe_tpu_torch.game.defines import PropertyGroup
 from noahgameframe_tpu_torch.game.world import GameWorld, WorldConfig
 from noahgameframe_tpu_torch.kernel.scene import SeedSpec
 from test_torch_parity import assert_tree_equal, jax_tree
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 EXTENT = 48.0
 

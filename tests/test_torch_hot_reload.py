@@ -15,6 +15,7 @@ from noahgameframe_tpu_torch.kernel import Kernel, Plugin, PluginManager
 
 from fixtures import base_registry
 from test_torch_scene import port_registry
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 PLUGIN_V1 = """
 from noahgameframe_tpu_torch.kernel.module import Module

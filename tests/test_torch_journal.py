@@ -41,6 +41,7 @@ from noahgameframe_tpu_torch.replay.journal import (
     decode_json,
     decode_tick,
 )
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def _world(jax_side: bool):

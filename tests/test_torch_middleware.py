@@ -23,6 +23,7 @@ import pytest
 
 from noahgameframe_tpu_torch.core.store import state_to_numpy
 from test_torch_parity import assert_tree_equal, jax_tree
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 JAX, PORT = "noahgameframe_tpu", "noahgameframe_tpu_torch"
 GUID_PIN = 4000

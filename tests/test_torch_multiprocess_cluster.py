@@ -12,6 +12,7 @@ game's first checkpoint through ``torch_run_role.py --role game
 (``--keepalive-seconds``) instead of the library's 10 s."""
 
 import chip_smoke as cs
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def test_five_process_cluster_bringup_login_and_replay(tmp_path):

@@ -22,6 +22,7 @@ import noahgameframe_tpu_torch.net.module as tmodule
 import noahgameframe_tpu_torch.net.transport as ttransport
 import noahgameframe_tpu_torch.net.wire_families as tfam
 import noahgameframe_tpu_torch.telemetry.pipeline as tpipe
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def test_framing_bytes_and_torn_stream_equal_jax():

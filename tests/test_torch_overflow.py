@@ -11,6 +11,7 @@ import pytest
 from noahgameframe_tpu.game import GameWorld as JWorld
 from noahgameframe_tpu.game import WorldConfig as JConfig
 from noahgameframe_tpu_torch.game.world import GameWorld, WorldConfig
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 CROWD = dict(combat=True, movement=False, regen=False, npc_capacity=64, player_capacity=8,
              extent=64.0, attack_period_s=1 / 30, respawn_s=1e6)

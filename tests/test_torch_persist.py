@@ -100,6 +100,7 @@ from noahgameframe_tpu_torch.persist.writebehind import (
     encode_batch,
 )
 from test_torch_parity import assert_tree_equal, jax_tree
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 # ---------------------------------------------------------------- checkpoints
 

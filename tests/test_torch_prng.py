@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from noahgameframe_tpu_torch.core import prng
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 SEEDS = [0, 1, 7, 12345, 2**31 - 1, -1, -5]
 

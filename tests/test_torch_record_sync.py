@@ -28,6 +28,7 @@ from noahgameframe_tpu_torch.kernel.module import Module
 from fixtures import base_registry
 from test_torch_parity import assert_tree_equal, jax_tree
 from test_torch_scene import port_registry
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 class _JaxMutator(JModule):

@@ -20,6 +20,7 @@ import noahgameframe_tpu_torch.replay.bisect as tbisect
 import noahgameframe_tpu_torch.replay.journal as tjournal
 import noahgameframe_tpu_torch.replay.replayer as treplayer
 from test_torch_game_role import JAX, PORT, bench_world
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 N_NPC = 512
 FRAMES = 16

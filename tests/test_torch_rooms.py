@@ -43,6 +43,7 @@ from noahgameframe_tpu_torch.parallel.rooms import (
 from noahgameframe_tpu_torch.parallel.mesh import ROOMS_AXIS, make_mesh
 from noahgameframe_tpu_torch.persist.rowblob import RowBlobError, frame_blob, unframe_blob
 from test_torch_parity import assert_tree_equal, jax_tree
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 ROOMS = 4
 TICKS = 30

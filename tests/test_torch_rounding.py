@@ -16,6 +16,7 @@ import torch
 
 from noahgameframe_tpu_torch.core.rounding import fma32
 from noahgameframe_tpu_torch.parallel.rooms import no_vmap_fallback
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 N_TIES = 1024
 N_RANDOM = 1 << 16

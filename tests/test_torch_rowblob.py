@@ -26,6 +26,7 @@ from noahgameframe_tpu_torch.persist.rowblob import (
     row_nbytes,
     unframe_blob,
 )
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 # ----------------------------------------------------------------- framing

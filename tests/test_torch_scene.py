@@ -27,6 +27,7 @@ from noahgameframe_tpu_torch.kernel.plugin import Plugin, PluginManager
 
 from fixtures import base_registry
 from test_torch_parity import assert_tree_equal, jax_tree
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def port_registry(jreg) -> tschema.ClassRegistry:

@@ -33,6 +33,7 @@ from noahgameframe_tpu_torch.core.crypto import (
 )
 from noahgameframe_tpu_torch.core.schema import load_class_xml
 from test_torch_scene import port_registry
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def registry():

@@ -20,6 +20,7 @@ import noahgameframe_tpu.utils.hostio as jhostio
 import noahgameframe_tpu_torch.net.serving as tns
 import noahgameframe_tpu_torch.ops.serving as tops
 import noahgameframe_tpu_torch.utils.hostio as thostio
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 C, S, M = 96, 6, 24  # entity rows, sessions, seen/candidate slots
 

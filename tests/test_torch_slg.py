@@ -12,6 +12,7 @@ from __future__ import annotations
 import pytest
 
 from test_torch_middleware import WireRig, run_both
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 CONFIG = dict(combat=False, movement=False, regen=False, npc_capacity=64,
               player_capacity=8, dt=1.0)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from noahgameframe_tpu_torch.ops import stencil_cuda as sc
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 # (width, victim bucket, attacker bucket): the 1M geometry, the boost
 # ceiling (x8), grids around the tile sizes, and buckets up to 2048

@@ -14,6 +14,7 @@ from noahgameframe_tpu_torch.core.store import state_from_numpy, state_to_numpy
 from noahgameframe_tpu_torch.game.world import build_benchmark_world as torch_world
 from noahgameframe_tpu_torch.kernel.kernel import state_digest as torch_digest
 from test_torch_parity import assert_tree_equal, jax_tree
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [0, 5])

@@ -15,6 +15,7 @@ from noahgameframe_tpu_torch.core.store import EntityStore
 
 from fixtures import base_registry
 from test_torch_scene import port_registry
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 PROPS = {
     "Level": ("int", lambda r: r.randint(-5, 99)),

@@ -17,6 +17,7 @@ import types
 from pathlib import Path
 
 import pytest
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGES = ("core", "net", "replay", "telemetry", "utils", "drill", "tools")

@@ -19,6 +19,7 @@ from noahgameframe_tpu_torch.game.world import build_benchmark_world as torch_wo
 from noahgameframe_tpu_torch.telemetry import registry as treg
 from noahgameframe_tpu_torch.telemetry.tracing import SpanTracer
 from noahgameframe_tpu_torch.utils.metrics import MemoryCensus, TickMetrics
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def _drive(mod):
@@ -159,9 +160,12 @@ def test_tick_metrics_and_census():
                       for cs in w.kernel.state.classes.values())
     assert c.device_bytes() > state_bytes
     text = w.telemetry.exposition()
+    # without a card the census reads the world's state tensors (source
+    # state_tensors), the counterpart of the JAX package's live_arrays
     for name in ("nf_train_dispatches_total 0", 'nf_entities_live{class="NPC"} 128',
-                 "nf_hbm_bytes_in_use 0"):
+                 f"nf_hbm_bytes_in_use {c.device_bytes()}"):
         assert name in text
+    assert w.kernel.costbook.hbm["source"] == "state_tensors"
 
 
 def _forged_books():
@@ -211,23 +215,32 @@ def test_cost_samples_and_roofline_fold_equal_jax():
 
 
 def test_cost_gauges_and_fallback_counter_on_metrics():
-    """The port's capture records carry no cost: the entry gauges are
-    exposed with no samples and the fold of a ticked world has no stage;
-    the fused engine never falls back, so the counter reads 0."""
+    """The port's cost count fills each entry's ``last`` with flops, bytes
+    accessed and temp bytes on its first run: the entry gauges carry a
+    sample for ``kernel.step`` (equal to its record) and the fold of a
+    ticked world has the ``tick`` stage; the fused engine never falls
+    back, so the counter reads 0."""
     from noahgameframe_tpu_torch.telemetry import roofline_fold
 
     w = torch_world(128, seed=3, device="cpu")
     w.kernel.tick()
-    assert w.kernel.costbook.entries["kernel.step"].last
+    last = w.kernel.costbook.entries["kernel.step"].last
+    assert last["flops"] > 0 and last["bytes_accessed"] > 0 and last["temp_bytes"] > 0
     _status, _ctype, body = w.telemetry.registry.handler("/metrics")
     text = body.decode() if isinstance(body, bytes) else body
-    for name in ("nf_entry_flops", "nf_entry_bytes_accessed", "nf_entry_temp_bytes"):
+    for name, key in (("nf_entry_flops", "flops"), ("nf_entry_bytes_accessed", "bytes_accessed"),
+                      ("nf_entry_temp_bytes", "temp_bytes")):
         assert f"# TYPE {name} gauge" in text
-        assert not [ln for ln in text.splitlines() if ln.startswith(name + "{")]
+        lines = [ln for ln in text.splitlines() if ln.startswith(name + "{")]
+        assert [ln.split()[0] for ln in lines] == [f'{name}{{entry="kernel.step"}}']
+        assert float(lines[0].split()[-1]) == pytest.approx(float(last[key]))
     assert "# TYPE nf_pallas_fallback_total counter" in text
     assert "\nnf_pallas_fallback_total 0\n" in text
-    fold = roofline_fold(w.kernel.costbook, {"frames": 1, "stages": {}}, platform="cpu")
-    assert fold["stages"] == {}
+    fold = roofline_fold(w.kernel.costbook, {"frames": 1, "stages": {"tick": {"mean_ms": 2.0}}},
+                         platform="cpu")
+    assert list(fold["stages"]) == ["tick"]
+    assert fold["stages"]["tick"]["entries"] == ["kernel.step"]
+    assert fold["stages"]["tick"]["flops_per_frame"] == last["flops"]
 
 
 def test_profiler_trace_writes_a_chrome_trace(tmp_path):

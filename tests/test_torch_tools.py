@@ -53,6 +53,7 @@ from chip_smoke import cpp_driver
 from test_codegen import HERO_CSV, HERO_INI_CSV, IOBJECT_CSV, write_inputs
 from test_cpp_sdk import frame
 from test_wire_fuzz import _frames
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 UNITY = REPO / "clients" / "unity"

@@ -19,6 +19,7 @@ from noahgameframe_tpu_torch.telemetry.pipeline import (
     merge_chrome_traces,
 )
 from noahgameframe_tpu_torch.telemetry.registry import MetricsRegistry
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 # ----------------------------------------------------------------- codec

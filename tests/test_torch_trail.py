@@ -12,6 +12,7 @@ import pytest
 from fixtures import base_registry
 from test_torch_middleware import PKGS
 from test_torch_scene import port_registry
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 class CaptureLog:

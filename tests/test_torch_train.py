@@ -21,6 +21,7 @@ from noahgameframe_tpu_torch.kernel.kernel import (
     _assert_train_lanes,
 )
 from noahgameframe_tpu_torch.kernel.module import Phase
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 TICKS = 60
 CONFIG = dict(npc_capacity=32, player_capacity=8, extent=64.0, seed=7, combat=True,

@@ -17,6 +17,7 @@ from noahgameframe_tpu.ops.stencil import build_cell_table_pair as jax_pair
 from noahgameframe_tpu_torch.game.world import build_benchmark_world as torch_world
 from noahgameframe_tpu_torch.ops import verlet as tv
 from noahgameframe_tpu_torch.ops.stencil import build_cell_table_pair
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 
 def _t(a):

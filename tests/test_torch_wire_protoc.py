@@ -25,6 +25,7 @@ import noahgameframe_tpu_torch.net.wire_families as wire_families
 from noahgameframe_tpu_torch.net.wire import Message
 from test_wire_protoc import EXT_PROTO as JAX_EXT_PROTO
 from test_wire_protoc import PB_MODULES, PROTO_FILES, PROTO_SRC, norm
+from test_torch_parity import one_intra_op_thread  # noqa: F401
 
 EXT_PROTO = (Path(__file__).resolve().parents[1] / "noahgameframe_tpu_torch" / "net"
              / "nf_tpu_ext.proto")
