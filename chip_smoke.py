@@ -34,11 +34,11 @@ non-zero without printing a result:
 (c) ``NF_VERLET_SKIN=2.0`` at 1M under engines 1 and 2: graph (sort and
    count binning) and eager runs of 30 ticks give equal digests and equal
    rebuild/reuse counts;
-5. ``build_benchmark_world(4096)`` gives the same digest stream for 60
+5. ``build_benchmark_world(4096)`` gives the same digest stream for 30
    ticks on ``cuda`` and on ``cpu``;
 (e) one run of the bench entry (``python -m noahgameframe_tpu_torch.bench``)
    at 1M, its JSON line printed on a line of its own;
-(f) many-worlds rooms at R = 8,192 (parallel/rooms.py ``RoomBatch``, the
+(f) many-worlds rooms at R = 4,096 (parallel/rooms.py ``RoomBatch``, the
    rooms recipe of the JAX package's bench: 64 NPC rows, 32 seeded, skin
    2.0): all rooms admitted into one batch; 30 ticks as the CUDA graph of
    the vmapped step under engines 1, 0 and 2 from the same state land on
@@ -102,7 +102,7 @@ non-zero without printing a result:
    window) and the re-captures with their causes.  The legacy and batched
    engines send byte-equal streams at 100k (sessions at seeded spots);
    at 4,096 NPCs and 32 sessions the card and the CPU (batched, overlap
-   and train engines), and the graph and the eager tick (15 frames), send
+   and train engines), and the graph and the eager tick (8 frames), send
    equal streams with equal digests; a journal of 45
    frames recorded on the card replays digest-clean on the card and on
    the CPU, and a perturbed replay is bisected to the injected tick; then
@@ -213,7 +213,17 @@ non-zero without printing a result:
    scripts/torch_{export,capture}_trace.py under engines 1 and 2 (1,024
    entities and 30 ticks; 1M and 3 graph ticks), each profile naming its
    engine's kernel.  The kernel table gains each kernel's launches there
-   (``scripts_launches``).
+   (``scripts_launches``);
+(p) nf-lint of the port (run last, ``phase_lint``): ``run_lint`` over
+   ``noahgameframe_tpu_torch/`` against ``nf_lint_torch_baseline.json``
+   on the card's host (0 open findings; counts, rules and seconds
+   printed); ``ops/stencil_cuda.py``'s ``CUSTOM_OP_PARITY_TESTS`` keys are
+   exactly the three ``nf::`` ops behind the two kernels, which phase 2
+   held at ``max_abs_err`` 0; and the dynamic twin of ``capture-safety``:
+   a ``.item()`` injected in memory into ``Kernel._pack_summary`` is
+   flagged by the lint (``overrides=``) from the graph-captured tick's
+   root, and in a child process (``--capture-probe``) a 4,096-row config-4
+   world's captured tick raises on it instead of running eagerly.
 
 Then the kernel table line and, last, the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -243,6 +253,7 @@ from noahgameframe_tpu_torch.game import world as gw
 from noahgameframe_tpu_torch.game.defines import STAT_NAMES, PropertyGroup
 from noahgameframe_tpu_torch.kernel import scene as gsc
 from noahgameframe_tpu_torch.kernel import kernel as km
+from noahgameframe_tpu_torch.lint import run_lint
 from noahgameframe_tpu_torch.ops import stencil as sc
 from noahgameframe_tpu_torch.ops import stencil_cuda as sck
 from noahgameframe_tpu_torch.parallel import rooms
@@ -259,9 +270,10 @@ FLOPS_PER_PAIR = 5
 N_MAIN = 1_000_000
 N_AOI = 500_000  # BASELINE config 3's AOI scan
 ROOMS_MAIN = 16_384  # the rooms path: 16,384 rooms of 64 NPC rows
-# phase (f)'s batch: 8,192 rooms, a depth cut (16,384 before phase (o));
-# the kernels' room axis (phase 2) and (l)'s sharded rooms keep 16,384
-ROOMS_F = 8_192
+# phase (f)'s batch: 4,096 rooms, a depth cut (16,384 before phase (o),
+# 8,192 before phase (p)); the kernels' room axis (phase 2) and (l)'s
+# sharded rooms keep 16,384
+ROOMS_F = 4_096
 SEED = 0
 DEV = "cuda"
 
@@ -1036,21 +1048,25 @@ def phase_verlet():
     return fused_launches
 
 
+CPU_PARITY_TICKS = 30  # 60 before the cuts for (p)
+
+
 def phase_cpu_parity():
-    """Phase 5: 60 observed ticks at 4096 on the card and on the CPU give
-    equal digest streams and counter banks, without a skin and with
-    NF_VERLET_SKIN=2.0 (the Verlet refresh the card runs)."""
+    """Phase 5: CPU_PARITY_TICKS observed ticks at 4096 on the card and on
+    the CPU give equal digest streams and counter banks, without a skin
+    and with NF_VERLET_SKIN=2.0 (the Verlet refresh the card runs)."""
     last = {}
+    n = CPU_PARITY_TICKS
     for skin in ("", "2.0"):
         os.environ["NF_VERLET_SKIN"] = skin
-        gpu = digest_stream(4096, 60, None, "cuda")
-        cpu = digest_stream(4096, 60, None, "cpu")
+        gpu = digest_stream(4096, n, None, "cuda")
+        cpu = digest_stream(4096, n, None, "cpu")
         check(gpu[0] == cpu[0], f"cuda and cpu digest streams equal at 4096 (skin {skin!r})")
         check(gpu[1] == cpu[1], f"cuda and cpu counter banks equal at 4096 (skin {skin!r})")
-        check(gpu[2]["combat_fold"] == 60, "the cuda run went through kernel 1")
+        check(gpu[2]["combat_fold"] == n, "the cuda run went through kernel 1")
         last[skin or "0"] = gpu[0][-1]
     os.environ.pop("NF_VERLET_SKIN")
-    emit({"phase": "cuda_cpu_parity", "entities": 4096, "ticks": 60,
+    emit({"phase": "cuda_cpu_parity", "entities": 4096, "ticks": n,
           "digests_equal": True, "last_digest": last})
 
 
@@ -1094,7 +1110,7 @@ def restore_batch(batch, snap) -> None:
 
 
 def phase_rooms():
-    """(f): R = 8,192 rooms on the card.  Returns each kernel's launches on
+    """(f): R = ROOMS_F rooms on the card.  Returns each kernel's launches on
     the rooms path (engine 1 and engine 2 runs of 30 replayed ticks)."""
     w = rooms_recipe()
     k = w.kernel
@@ -1242,7 +1258,7 @@ def tick_times_rooms(batch, n: int) -> list:
 
 def phase_bench_rooms():
     """(f): the bench's rooms ladder, as a user runs it (a subprocess), at
-    256 rooms: phase (f) itself ticks an 8,192-room batch (the 4,096 rung
+    256 rooms: phase (f) itself ticks a ROOMS_F-room batch (the 4,096 rung
     is a depth cut that makes room for phase (o))."""
     cmd = [sys.executable, "-m", "noahgameframe_tpu_torch.bench", "--rooms",
            "--rooms-count", "256"]
@@ -1894,7 +1910,8 @@ SERVED_WARMUP = 3
 SERVED_BENCH_FRAMES = 30  # the bench line's frames (its default, 90, before the cuts for (o))
 SERVED_RADIUS = 8.0
 FRAME_LIMIT_MS = 1000.0 / 30.0
-PARITY_N, PARITY_SESSIONS, PARITY_FRAMES = 4096, 32, 15  # 30 before the cuts for (o)
+# 30 frames before the cuts for (o), 15 before those for (p)
+PARITY_N, PARITY_SESSIONS, PARITY_FRAMES = 4096, 32, 8
 JOURNAL_FRAMES = 45
 ENGINES = {
     "legacy": {"serve_batch": False},
@@ -4886,12 +4903,188 @@ def phase_scripts(card: str):
     return launches, {nm: e for nm, (_c, e) in held.items()}
 
 
+# -- phase (p): nf-lint of the port, and its dynamic twin ----------------------
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(km.__file__)))
+LINT_BASELINE = os.path.join(os.path.dirname(PKG_DIR), "nf_lint_torch_baseline.json")
+PROBE_N = 4096  # rows of the config-4 world whose captured tick the probe breaks
+PROBE_REL = "kernel/kernel.py"
+PROBE_FN = ("Kernel", "_pack_summary")
+#: each hand kernel and the custom ops that launch it
+KERNEL_OPS = {"combat_fold": ("nf::combat_fold",),
+              "fused_neighborhood": ("nf::slot_rows", "nf::fused_neighborhood")}
+
+
+def probe_source():
+    """``kernel/kernel.py`` with a ``.item()`` of the tick injected at the
+    top of ``Kernel._pack_summary``'s body (after its docstring), in memory:
+    (the injected module text, the injected line, the function's source)."""
+    import ast
+    import textwrap
+
+    with open(os.path.join(PKG_DIR, PROBE_REL), encoding="utf-8") as f:
+        src = f.read()
+    cls_name, fn_name = PROBE_FN
+    cls = next(n for n in ast.parse(src).body
+               if isinstance(n, ast.ClassDef) and n.name == cls_name)
+    fn = next(n for n in cls.body if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    body = fn.body
+    first = body[1] if (isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                        and isinstance(body[0].value.value, str)) else body[0]
+    lines = src.splitlines(keepends=True)
+    line = first.lineno
+    lines.insert(line - 1, " " * first.col_offset + "tick.item()  # injected host read\n")
+    injected = "".join(lines)
+    new_fn = next(n for n in next(
+        n for n in ast.parse(injected).body
+        if isinstance(n, ast.ClassDef) and n.name == cls_name).body
+        if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    return injected, line, textwrap.dedent(ast.get_source_segment(injected, new_fn))
+
+
+def capture_probe(spec_path: str) -> int:
+    """The child of (p).2 (``chip_smoke.py --capture-probe SPEC``): a
+    PROBE_N-row config-4 world on ``cuda`` under ``set_graph_tick`` ticks
+    once as a CUDA graph, then ``Kernel._pack_summary`` is replaced by the
+    injected source (in memory) and the next tick's capture must raise.
+    Prints one JSON line; exits 0 when the capture raised."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sck.library()
+    w = gw.build_benchmark_world(PROBE_N, seed=SEED, device=DEV)
+    k = w.kernel
+    k.set_graph_tick(True)
+    k.tick()
+    entry = k.costbook.entry("kernel.step")
+    clean_graph = entry.runner is not None and entry.runner.graph
+    torch.cuda.synchronize()
+    tick0 = int(k.state.tick)
+    ns = dict(vars(km))
+    exec(compile(spec["source"], "<injected>", "exec"), ns)
+    injected = ns[PROBE_FN[1]]
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return injected(*a, **kw)
+
+    setattr(km.Kernel, PROBE_FN[1], counted)
+    k.invalidate()
+    raised = None
+    try:
+        k.tick()
+    except Exception as e:  # the capture must refuse the host read
+        # the chain, innermost first: the refused sync, then what the end
+        # of the capture reported
+        raised, cur = [], e
+        while cur is not None and len(raised) < 4:
+            raised.insert(0, f"{type(cur).__name__}: "
+                             f"{(str(cur).strip().splitlines() or [''])[0][:240]}")
+            cur = cur.__cause__ or cur.__context__
+    out = {"clean_graph": bool(clean_graph), "tick_before": tick0, "raised": raised,
+           "injected_calls": calls[0], "graph_runner_after": entry.runner is not None,
+           "warmup_runs": WARMUP_RUNS}
+    print(json.dumps(out), flush=True)
+    return 0 if raised is not None else 1
+
+
+def phase_lint(card: str, max_err: dict):
+    """(p): nf-lint of the port on the card's host, and its dynamic twin.
+
+    1. ``run_lint`` over the port package against the committed baseline:
+       open, suppressed and baselined counts, the rules, the seconds; open
+       must be 0 and no baseline entry stale.  ``CUSTOM_OP_PARITY_TESTS``'
+       keys are exactly the three ``nf::`` ops behind ``KERNELS``' two
+       kernels, each registered with torch, and phase 2 held both kernels
+       at ``max_abs_err == 0`` in this run (the row tables of
+       ``nf::slot_rows`` equal to ``slot_rows`` is one of its checks).
+    2. The dynamic twin of ``capture-safety``: a ``.item()`` injected
+       (in memory) into ``Kernel._pack_summary``, which the lint reports
+       as reachable from the graph-captured tick; the lint flags the
+       injected source through ``overrides=``, and in a child process
+       (started first, so it runs beside the lint) a PROBE_N-row config-4
+       world's tick capture raises on it (the cost book does not fall back
+       to an eager tick)."""
+    import ast
+
+    t_phase = time.perf_counter()
+    injected, line, fn_src = probe_source()
+    root_dir = tempfile.mkdtemp(prefix="nf_probe_")
+    try:
+        spec_path = os.path.join(root_dir, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"source": fn_src}, f)
+        with open(os.path.join(root_dir, "out"), "w+") as out, \
+                open(os.path.join(root_dir, "err"), "w+") as err:
+            t_child = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                     "--capture-probe", spec_path], stdout=out, stderr=err)
+            try:
+                # 1: the port's tree
+                t0 = time.perf_counter()
+                report = run_lint(PKG_DIR, baseline_path=LINT_BASELINE)
+                lint_s = time.perf_counter() - t0
+                # 2: the injected source through the lint
+                t0 = time.perf_counter()
+                probe = run_lint(PKG_DIR, rule_filter=["capture-safety"],
+                                 overrides={PROBE_REL: injected})
+                probe_s = time.perf_counter() - t0
+                rc = proc.wait(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            child_s = time.perf_counter() - t_child
+            out.seek(0)
+            err.seek(0)
+            stdout, stderr = out.read(), err.read()
+    finally:
+        shutil.rmtree(root_dir, ignore_errors=True)
+
+    counts = report.to_json()["counts"]
+    check(counts["open"] == 0, f"nf-lint: no open finding on the port ({counts})")
+    check(not report.stale_baseline, "nf-lint: no stale baseline entry")
+    reg = sck.CUSTOM_OP_PARITY_TESTS
+    check(set(KERNEL_OPS) == set(sck.KERNELS), "every hand kernel has its custom ops")
+    check(set(reg) == {op for ops in KERNEL_OPS.values() for op in ops},
+          "the registry's keys are exactly the three nf:: ops")
+    for op in reg:
+        check(hasattr(torch.ops.nf, op.partition("::")[2]), f"{op} is registered with torch")
+    for name in KERNEL_OPS:
+        check(max_err[name] == 0, f"phase 2 held {name} at max_abs_err 0")
+
+    # the root the lint must name: the graph dispatcher of Kernel.compile's tick
+    wrap_line = next(n.lineno for n in ast.walk(ast.parse(injected))
+                     if isinstance(n, ast.Call) and n.args
+                     and getattr(n.args[0], "value", None) == "kernel.step")
+    root = f"{PROBE_REL}:{wrap_line} (graph)"
+    hits = [f for f in probe.open_findings if f.path == PROBE_REL and f.line == line]
+    check(len(hits) == 1 and "`.item()`" in hits[0].message and root in hits[0].message,
+          f"the lint flags the injected .item() from the graph-captured tick ({root})")
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    check(bool(lines), f"the capture probe printed its result (rc {rc}): {stderr[-2000:]}")
+    child = json.loads(lines[-1])
+    check(child["clean_graph"], "the probe world's clean tick ran as a CUDA graph")
+    check(rc == 0 and child["raised"], "the capture of the injected tick raised")
+    check(not child["graph_runner_after"], "no graph was kept for the injected tick")
+    check(child["injected_calls"] >= 1, "the injected function ran on the captured path")
+    emit({"phase": "lint", "card": card,
+          "lint": {**counts, "rules": len(report.rules), "seconds": lint_s,
+                   "stale_baseline": len(report.stale_baseline)},
+          "registry": dict(reg), "held_max_abs_err": {n: max_err[n] for n in KERNEL_OPS},
+          "probe": {"function": ".".join(PROBE_FN), "path": PROBE_REL, "line": line,
+                    "lint_message": hits[0].message, "lint_seconds": probe_s,
+                    "capture": child, "child_seconds": child_s},
+          "seconds": time.perf_counter() - t_phase})
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if len(sys.argv) > 1 and sys.argv[1] == "--capture-probe":
+        return capture_probe(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -4936,6 +5129,8 @@ def main() -> int:
     examples_launches, examples_err = phase_examples(card)
     free()
     scripts_launches, scripts_err = phase_scripts(card)
+    free()
+    phase_lint(card, max_err)
 
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
     src = "noahgameframe_tpu_torch/csrc/stencil.cu"

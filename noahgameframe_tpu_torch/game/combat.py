@@ -225,6 +225,10 @@ class CombatModule(Module):
         on the CPU.  Unknown values raise."""
         mode = self.use_pallas
         if mode is None:
+            # nf-lint: disable=capture-safety -- sanctioned A/B knob: read
+            # at capture time and baked into the captured fold;
+            # capture_key() carries the resolved engine, so flipping
+            # NF_PALLAS re-captures
             raw = os.environ.get("NF_PALLAS", "").strip()
             if raw not in ("", "0", "1", "2"):
                 raise ValueError(f"NF_PALLAS={raw!r}: expected one of '', '0', '1', '2'")

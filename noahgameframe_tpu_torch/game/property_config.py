@@ -42,6 +42,9 @@ class PropertyConfigModule(Module):
         for k, v in stats.items():
             self._base[job, level, STAT_NAMES.index(k)] = int(v)
         self._max_exp[job, level] = int(max_exp)
+        # nf-lint: disable=recapture-hazard -- marks the host staging
+        # dirty; the device tables change only in freeze(), which
+        # invalidates the captured tick
         self.table = None
 
     def load_elements(self, elements: ElementStore) -> int:
@@ -72,6 +75,9 @@ class PropertyConfigModule(Module):
             b, s = int(base.get(k, 0)), int(per_level.get(k, 0))
             self._base[job, :, STAT_NAMES.index(k)] = b + lv * s
         self._max_exp[job] = max_exp_base + lv * max_exp_per_level
+        # nf-lint: disable=recapture-hazard -- marks the host staging
+        # dirty; the device tables change only in freeze(), which
+        # invalidates the captured tick
         self.table = None
 
     def freeze(self) -> None:
@@ -80,10 +86,14 @@ class PropertyConfigModule(Module):
         package keeps it (jax without x64 narrows the int64 staging).  The
         captured tick holds the old tensors, so this invalidates it."""
         dev = self.kernel.device
+        # nf-lint: disable=recapture-hazard -- new table tensors, and the
+        # kernel.invalidate() below in the same call re-captures the tick
         self.table = torch.from_numpy(self._base).to(dev)
         self.max_exp = torch.from_numpy(self._max_exp).to(dev)
         cum = np.zeros((self.n_jobs, self.max_level + 1), np.int64)
         cum[:, 1:] = np.cumsum(self._max_exp[:, :-1].astype(np.int64), axis=1)
+        # nf-lint: disable=recapture-hazard -- as the table above: the
+        # invalidate() below re-captures the tick
         self.cum_exp = torch.from_numpy(cum.astype(np.int32)).to(dev)
         self.kernel.invalidate()
 

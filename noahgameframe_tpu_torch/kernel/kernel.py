@@ -145,6 +145,9 @@ def _digest_u32(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bool:
         return x.to(torch.int64)
     if x.dtype == torch.float32:
+        # nf-lint: disable=capture-safety -- no vmapped step digests: the
+        # rooms engine steps with digest_in_step=False and digests all
+        # rooms after its vmap (state_digest(..., rooms=True))
         x = x.view(torch.int32)
     return x.to(torch.int64) & MASK32
 
@@ -417,6 +420,9 @@ class Kernel(Module):
         key the captures (a plugin reload)."""
         if modules is not None:
             self._modules = list(modules)
+        # nf-lint: disable=recapture-hazard -- the phase chain is the
+        # step's code, which no capture key can hold: this method drops
+        # every captured graph itself and bumps the cost book's generation
         self._composed = sorted(phases, key=lambda p: p.order)
         self._step_fn = self._run_fn = self._train_fn = None
         self._trace_gen += 1

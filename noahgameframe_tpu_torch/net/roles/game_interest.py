@@ -198,8 +198,9 @@ class GameInterestMixin:
         from ...core.datatypes import next_pow2
 
         k = self.kernel
-        # the legacy engine's observer collector (the parity oracle for
-        # NF_SERVE_BATCH); the batched path reads the SessionTable columns
+        # nf-lint: disable=serve-loop -- the legacy engine's observer
+        # collector (the parity oracle for NF_SERVE_BATCH); the batched
+        # path reads the SessionTable columns
         obs = [
             s for s in self.sessions.values()
             if s.guid is not None and s.guid in k.store.guid_map
@@ -255,8 +256,9 @@ class GameInterestMixin:
         rows_np, ok_np = rows.cpu().numpy(), ok.cpu().numpy()
         host = k.store._hosts[cname]
         scale = float(self.game_world.config.extent) / QMAX
-        # the legacy per-session engine itself (NF_SERVE_BATCH=0): the
-        # bit-identity oracle of the batched engine
+        # nf-lint: disable=serve-loop -- the legacy per-session engine
+        # itself (NF_SERVE_BATCH=0): the bit-identity oracle of the
+        # batched engine
         for i, sess in enumerate(obs):
             vis = rows_np[i][ok_np[i]]
             vis = vis[host.alloc_mask[vis]]  # drop just-died rows

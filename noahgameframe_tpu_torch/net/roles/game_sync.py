@@ -371,8 +371,9 @@ class GameSyncMixin:
         changed[rows] = True
         cs = k.state.classes[cname]
         vrows, vok = self._query_visible(cname, changed, obs_rows, obs_valid)
-        # per-entity property lane shared by both engines; diffs here are
-        # < batch_sync_min rows, so the loop is small-N
+        # nf-lint: disable=serve-loop -- per-entity property lane shared
+        # by both engines; diffs here are < batch_sync_min rows, so the
+        # loop is small-N
         for i, sess in enumerate(obs):
             g = sess.guid
             if g is None:
@@ -670,8 +671,9 @@ class GameSyncMixin:
         pos_of[rows] = np.arange(rows.size)
         name_b, cls_b = pname.encode(), cname.encode()
         ptype = int(slot.prop.type)
-        # legacy columnar lane (NF_SERVE_BATCH=0), the parity oracle for
-        # the batched _send_batch_property_interest_batched above
+        # nf-lint: disable=serve-loop -- legacy columnar lane
+        # (NF_SERVE_BATCH=0), the parity oracle for the batched
+        # _send_batch_property_interest_batched above
         for i, sess in enumerate(obs):
             vis = vrows[i][vok[i]]
             vis = vis[host.alloc_mask[vis]]

@@ -54,6 +54,9 @@ def binning_mode() -> str:
     """The validated ``NF_BINNING`` mode; unset or empty means "sort".
     Unknown values raise: a typo'd mode silently running the default
     would mislabel any A/B it ran under."""
+    # nf-lint: disable=capture-safety -- sanctioned A/B knob: read at
+    # capture time and baked into the captured tick; combat's
+    # capture_key() carries it ("binning"), so flipping it re-captures
     raw = os.environ.get(ENV_BINNING, "").strip()
     if not raw:
         return "sort"
@@ -69,6 +72,9 @@ def radix_bits() -> int:
     0 keeps the stable argsort.  The JAX package's semantics: a digit
     value > 0 selects the radix path, anything else (unset, empty, 0, not
     a digit) the argsort."""
+    # nf-lint: disable=capture-safety -- sanctioned A/B knob: read at
+    # capture time and baked into the captured tick; combat's
+    # capture_key() carries it ("radix"), so flipping it re-captures
     raw = os.environ.get(ENV_RADIX, "")
     return int(raw) if raw.isdigit() else 0
 
@@ -189,6 +195,9 @@ def _sorted_segments(pos, active, cell_size: float, width: int, cell=None,
     radix = radix_bits()
     if radix > 0:
         # keys lie in [0, n_cells]: the inactive key is n_cells itself
+        # nf-lint: disable=capture-safety -- n_cells is the host int that
+        # _cell_keys returns (width * width, or the caller's Optional[int]):
+        # int() reads no tensor
         order = _radix_argsort(key, max(1, int(n_cells).bit_length()), radix)
     else:
         order = torch.argsort(key, stable=True)  # row order kept within a cell

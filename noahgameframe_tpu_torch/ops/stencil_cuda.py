@@ -98,6 +98,16 @@ KERNELS = {
 }
 
 
+# nf-lint custom-op-parity-pinned registry (lint/rules_cuda.py): every
+# torch.library.custom_op of this module, keyed to the card-only test file
+# that holds its wrapper against its plain version
+CUSTOM_OP_PARITY_TESTS = {
+    "nf::combat_fold": "tests/test_torch_cuda.py",
+    "nf::slot_rows": "tests/test_torch_cuda.py",
+    "nf::fused_neighborhood": "tests/test_torch_cuda.py",
+}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0

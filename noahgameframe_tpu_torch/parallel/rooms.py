@@ -620,6 +620,9 @@ class RoomBatch:
         """Pin the train length (see Kernel.configure_train)."""
         self.kernel.configure_train(k)
         if int(k) != self._train_k:
+            # nf-lint: disable=recapture-hazard -- the kernel's own train
+            # length, pinned just above: the rooms train keys its capture
+            # on kernel._train_statics(), whose train_k is this value
             self._train_k = int(k)
             if self._train_fns:
                 self._train_fns = {}

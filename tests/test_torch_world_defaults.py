@@ -35,7 +35,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     import statement."""
     scripts = sorted((REPO / "scripts").glob("torch_*.py"))
     scripts += sorted((REPO / "examples").glob("torch_*.py"))
-    assert len(scripts) == 26
+    assert len(scripts) == 27
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", *scripts]
     banned = ("jax", "flax", "noahgameframe_tpu")
     for f in files:
