@@ -31,6 +31,7 @@ from ..kernel.plugin import Plugin, PluginManager
 from ..kernel.scene import SceneModule
 from ..persist.checkpoint import load_world, save_world
 from ..telemetry.module import TelemetryModule
+from ..telemetry.tracing import SpanTracer
 from .buff import BuffModule
 from .combat import CombatModule, SkillModule
 from .defines import COMM_PROPERTY_RECORD, PropertyGroup
@@ -298,25 +299,35 @@ class GameWorld:
 def build_benchmark_world(n_npcs: int, extent: Optional[float] = None,
                           combat: bool = True, seed: int = 0,
                           attack_period_s: float = 1.0, player_capacity: int = 64,
-                          device=None) -> GameWorld:
+                          device=None, tracer: Optional[SpanTracer] = None) -> GameWorld:
     """The staged BASELINE world: density held at ~0.4 NPCs per world
-    unit² so AOI cost scales with N, not with density."""
-    if extent is None:
-        extent = max(64.0, float(np.sqrt(n_npcs / 0.4)))
-    cap = 1 << int(np.ceil(np.log2(max(n_npcs, 64))))
-    w = GameWorld(
-        WorldConfig(
-            npc_capacity=cap,
-            extent=extent,
-            combat=combat,
-            seed=seed,
-            attack_period_s=attack_period_s,
-            middleware=False,
-            player_capacity=player_capacity,
-        ),
-        device=device,
-    )
-    w.start()
-    w.scene.create_scene(1, width=extent)
-    w.seed_npcs(n_npcs)
+    unit² so AOI cost scales with N, not with density.
+
+    With ``tracer``, the world's telemetry adopts it, and the build is
+    its span ``world.build`` with ``world.start`` and ``world.seed_npcs``
+    inside."""
+    tr = tracer if tracer is not None else SpanTracer()  # off: its spans cost nothing
+    with tr.span("world.build", npcs=int(n_npcs)):
+        if extent is None:
+            extent = max(64.0, float(np.sqrt(n_npcs / 0.4)))
+        cap = 1 << int(np.ceil(np.log2(max(n_npcs, 64))))
+        w = GameWorld(
+            WorldConfig(
+                npc_capacity=cap,
+                extent=extent,
+                combat=combat,
+                seed=seed,
+                attack_period_s=attack_period_s,
+                middleware=False,
+                player_capacity=player_capacity,
+            ),
+            device=device,
+        )
+        if tracer is not None:
+            w.telemetry.tracer = tracer
+        with tr.span("world.start"):
+            w.start()
+        w.scene.create_scene(1, width=extent)
+        with tr.span("world.seed_npcs"):
+            w.seed_npcs(n_npcs)
     return w

@@ -709,6 +709,14 @@ class Kernel(Module):
         tail = arr[..., arr.shape[-1] - len(names):]
         return {k: tail[..., i] for i, k in enumerate(names)}
 
+    def device_spans(self, entry: str = "kernel.run") -> Optional[List[Tuple[str, float]]]:
+        """``(name, ms)`` of each part of the last replay of ``entry``'s
+        graph on the device (``nf.schedule``, each ``nf.phase.*``,
+        ``nf.step``, ``nf.copy_back``), or None unless it was captured with
+        the tracer on (:meth:`CostBook.device_spans`).  Read after a
+        device sync."""
+        return self.costbook.device_spans(entry)
+
     def run_device(self, n: int, reconcile: bool = True, graph: Optional[bool] = None) -> int:
         """Advance n frames with no host sync: per-tick host observation is
         skipped, and deaths are reconciled once at the end (unless
@@ -734,10 +742,11 @@ class Kernel(Module):
             with self._span("kernel.dispatch"):
                 self.state, _ = self._run_fn(self.state, times=n)
         else:
-            state = self.state
-            for _ in range(n):
-                state, _ = self._step(state, observe=False)
-            self.state = state
+            with self._span("kernel.dispatch"):
+                state = self.state
+                for _ in range(n):
+                    state, _ = self._step(state, observe=False)
+                self.state = state
         self.tick_count += n
         if not reconcile:
             return 0

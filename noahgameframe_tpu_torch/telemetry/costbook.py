@@ -18,6 +18,10 @@ skin, ...), and on a miss captures the step anew.  Per entry it records:
   the captured graph, counted with ``cuGraphGetNodes``;
 - the graph pool's bytes (``torch.cuda.memory_reserved`` grown by the
   capture) and ``torch.cuda.max_memory_allocated`` after it;
+- the copy-backs the graph ends with (``copy_backs``) and the bytes they
+  copy (``copy_back_bytes``, clones included), and a running total of
+  the leaves each dispatch copied into the graph's inputs first
+  (``CostEntry.copy_ins``: 0 while nothing replaces a leaf);
 - the step's cost, under the JAX package's key names: ``flops``,
   ``bytes_accessed`` and ``temp_bytes`` (see below).
 
@@ -70,6 +74,20 @@ clock's device seconds, as in the JAX package.  An entry folds when its
 
 Sanctioned re-captures call :meth:`generation_bump`; ``mark()`` /
 ``unexplained_since(mark)`` is the soak gate that finds the others.
+
+**Spans.**  With :attr:`CostBook.tracer` on (``TelemetryModule`` sets the
+world's tracer there and on the kernel), a dispatch records
+``costbook.key`` (statics, flatten, the leaf signature and the lookup),
+``costbook.copy_in`` (with the count of leaves it copied) and
+``graph.replay``; a capture records ``costbook.capture`` with
+``costbook.cost_count``, ``costbook.warmup``, ``costbook.record``,
+``costbook.instantiate`` and ``costbook.count_launches`` inside.  A
+graph entry captured while the tracer is on also times its phases on
+the device: ``phase_events`` joins its key, and the graph records a
+timing event at its start, at the end of each outermost
+``device_annotation`` range, after the step and after the copy-backs
+(event-record nodes, which the launch count leaves out);
+:meth:`CostBook.device_spans` reads the last replay's.
 """
 
 from __future__ import annotations
@@ -85,6 +103,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.tree import flatten, unflatten
+from .tracing import DeviceMarks, SpanTracer, device_marks
 
 __all__ = ["CostBook", "CostEntry", "CostCounter", "count_cost", "roofline_fold", "PEAKS",
            "HBM_SAMPLE_FRAMES"]
@@ -361,6 +380,7 @@ class CostEntry:
         self.replays = 0  # steps run by those dispatches
         self.compiles = 0  # signature misses (captures on a CUDA device)
         self.capture_s_total = 0.0
+        self.copy_ins = 0  # leaves copied into a graph's inputs, all dispatches
         self.causes: Dict[str, int] = {}
         self.last: Dict[str, Any] = {}
         self._last_sig = None
@@ -403,6 +423,7 @@ class CostEntry:
             "compiles": self.compiles,
             "recompiles": self.recompiles,
             "capture_ms_total": round(self.capture_s_total * 1e3, 3),
+            "copy_ins": self.copy_ins,
             "causes": dict(self.causes),
             "last": dict(self.last),
         }
@@ -419,11 +440,12 @@ class _Eager:
         self.fn = fn
         self.rec = rec
 
-    def run(self, state, leaves, times: int):
+    def run(self, state, leaves, times: int, tracer: SpanTracer, entry: CostEntry):
         out = None
         for _ in range(times):
             if self.rec is not None:
-                (state, out), cost = count_cost(self.fn, state)
+                with tracer.span("costbook.cost_count"):
+                    (state, out), cost = count_cost(self.fn, state)
                 self.rec.update(cost)
                 self.rec = None
             else:
@@ -446,14 +468,20 @@ class _Graph:
     ``launch_counters``: objects with a ``launches`` count (the hand
     kernels' wrappers).  A capture records launches without running them,
     so the counts made during capture are taken back and added again, per
-    kernel, at every replay."""
+    kernel, at every replay.
+
+    ``phase_events``: record :class:`DeviceMarks` in the graph (``start``,
+    each outermost ``device_annotation`` range, ``nf.step`` after the
+    step, ``nf.copy_back`` after the copy-backs); ``marks`` is then the
+    graph's, else None.  ``tracer`` times the capture's parts."""
 
     graph = True
 
     # CUgraphNodeType: kernel, memcpy, memset (the device launches)
     _LAUNCH_NODE_TYPES = (0, 1, 2)
 
-    def __init__(self, fn: Callable, state, launch_counters: Mapping[str, Any]):
+    def __init__(self, fn: Callable, state, launch_counters: Mapping[str, Any],
+                 tracer: SpanTracer, phase_events: bool = False):
         leaves, spec, _paths = flatten(state)
         dev = next(x.device for x in leaves if isinstance(x, torch.Tensor))
         # one buffer per leaf: a leaf sharing storage with an earlier one
@@ -471,20 +499,24 @@ class _Graph:
         self.state = unflatten(spec, inputs)
         self.counters = launch_counters
         self.device = dev
+        self.marks = DeviceMarks() if phase_events else None
         with torch.cuda.device(dev):
-            self._capture(fn, spec, inputs, launch_counters)
+            self._capture(fn, spec, inputs, launch_counters, tracer)
 
-    def _capture(self, fn, spec, inputs, launch_counters) -> None:
+    def _capture(self, fn, spec, inputs, launch_counters, tracer: SpanTracer) -> None:
         dev = self.device
         torch.cuda.synchronize(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             # functional: the results are dropped; the first is counted
-            _out, self.cost = count_cost(fn, self.state)
-            del _out
-            for _ in range(WARMUP_RUNS - 1):
-                fn(self.state)
+            with tracer.span("costbook.cost_count"):
+                _out, self.cost = count_cost(fn, self.state)
+                del _out
+            with tracer.span("costbook.warmup"):
+                for _ in range(WARMUP_RUNS - 1):
+                    fn(self.state)
+                torch.cuda.synchronize(dev)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         # a dropped graph that only a reference cycle still holds must not
@@ -500,41 +532,63 @@ class _Graph:
         self.cuda_graph = torch.cuda.CUDAGraph(keep_graph=True)
         gc.disable()
         try:
-            self._record(fn, spec, inputs)
+            with tracer.span("costbook.record"):
+                self._record(fn, spec, inputs)
         finally:
             gc.enable()
-        self.cuda_graph.instantiate()
+        with tracer.span("costbook.instantiate"):
+            self.cuda_graph.instantiate()
+            torch.cuda.synchronize(dev)
         self.per_replay = {}
         for k, c in launch_counters.items():
             self.per_replay[k] = c.launches - before[k]
             c.launches = before[k]
-        torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
         self.max_allocated = torch.cuda.max_memory_allocated(dev)
-        self.launches_per_replay = self._count_launches()
+        with tracer.span("costbook.count_launches"):
+            self.launches_per_replay = self._count_launches()
 
     def _record(self, fn, spec, inputs) -> None:
         """Capture ``fn`` on the state, then the copies of its written
-        leaves back into the inputs."""
+        leaves back into the inputs (``copy_backs`` of them, moving
+        ``copy_back_bytes``, the clones of moved inputs included)."""
+        marks = self.marks
         with torch.cuda.graph(self.cuda_graph):
-            new_state, self.outs = fn(self.state)
+            if marks is not None:
+                marks.mark("start")
+            with device_marks(marks):
+                new_state, self.outs = fn(self.state)
+            if marks is not None:
+                marks.mark("nf.step")
             new_leaves, new_spec, _ = flatten(new_state)
             if new_spec != spec:
                 raise RuntimeError("a captured step must return the state's own structure")
             pos = {id(x): i for i, x in enumerate(inputs) if isinstance(x, torch.Tensor)}
             writes = []
+            nbytes = 0
             for i, (dst, src) in enumerate(zip(inputs, new_leaves)):
                 if src is dst or not isinstance(dst, torch.Tensor):
                     continue
                 if pos.get(id(src), i) != i:
                     src = src.clone()  # an input moved to another leaf
+                    nbytes += src.nbytes
                 writes.append((dst, src))
             for dst, src in writes:
                 dst.copy_(src)
+                nbytes += dst.nbytes
+            if marks is not None:
+                marks.mark("nf.copy_back")
         self.copy_backs = len(writes)
+        self.copy_back_bytes = nbytes
 
     def _count_launches(self) -> int:
         """Kernel, copy and fill nodes of the captured graph."""
+        types = self.node_types()
+        return sum(types.get(t, 0) for t in self._LAUNCH_NODE_TYPES)
+
+    def node_types(self) -> Dict[int, int]:
+        """The captured graph's nodes by ``CUgraphNodeType`` (0 kernel, 1
+        memcpy, 2 memset, 7 event record, ...)."""
         lib = ctypes.CDLL("libcuda.so.1")
         graph = ctypes.c_void_p(self.cuda_graph.raw_cuda_graph())
         n = ctypes.c_size_t(0)
@@ -544,19 +598,25 @@ class _Graph:
         if lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
             raise RuntimeError("cuGraphGetNodes failed")
         kind = ctypes.c_int()
-        count = 0
+        types: Dict[int, int] = {}
         for node in nodes:
             if lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
                 raise RuntimeError("cuGraphNodeGetType failed")
-            count += kind.value in self._LAUNCH_NODE_TYPES
-        return count
+            types[kind.value] = types.get(kind.value, 0) + 1
+        return types
 
-    def run(self, state, leaves, times: int):
-        for dst, src in zip(self.inputs, leaves):
-            if src is not dst and isinstance(dst, torch.Tensor):
-                dst.copy_(src)
-        for _ in range(times):
-            self.cuda_graph.replay()
+    def run(self, state, leaves, times: int, tracer: SpanTracer, entry: CostEntry):
+        with tracer.span("costbook.copy_in") as sp:
+            copied = 0
+            for dst, src in zip(self.inputs, leaves):
+                if src is not dst and isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+                    copied += 1
+            entry.copy_ins += copied
+            sp.set(leaves=copied)
+        with tracer.span("graph.replay"):
+            for _ in range(times):
+                self.cuda_graph.replay()
         self._add_launches(times)
         if self.outs is None:
             return self.state, None
@@ -575,6 +635,9 @@ class CostBook:
 
     def __init__(self) -> None:
         self.entries: Dict[str, CostEntry] = {}
+        #: host spans of dispatches and captures (off by default; the
+        #: telemetry module sets the world's tracer here)
+        self.tracer = SpanTracer()
         self.generation = 0
         self.gen_events: List[Dict[str, Any]] = []
         self.compile_log: List[Dict[str, Any]] = []
@@ -603,17 +666,24 @@ class CostBook:
         returns the last ``(state', outs)``.  With ``graph`` and a state on
         a CUDA device, each signature is captured once as a CUDA graph and
         replayed; otherwise the step runs eagerly.  ``statics`` returns the
-        host-side knobs the step closes over; they are part of the key."""
+        host-side knobs the step closes over; they are part of the key, and
+        so, for a graph on a CUDA device, is ``phase_events`` while the
+        book's tracer is on."""
         entry = self.entry(name, stage=stage)
         cache: Dict[Any, Any] = {}
         counters = dict(launch_counters or {})
         book = self
 
         def dispatch(state, times: int = 1):
-            leaves, spec, paths = flatten(state)
-            st = tuple(sorted((statics() if statics else {}).items()))
-            sig = (spec, tuple(_leaf_sig(x) for x in leaves), st)
-            runner = cache.get(sig)
+            tracer = book.tracer
+            with tracer.span("costbook.key"):
+                leaves, spec, paths = flatten(state)
+                st = statics() if statics else {}
+                if graph and tracer.enabled and next(
+                        (x.is_cuda for x in leaves if isinstance(x, torch.Tensor)), False):
+                    st = {**st, "phase_events": True}
+                sig = (spec, tuple(_leaf_sig(x) for x in leaves), tuple(sorted(st.items())))
+                runner = cache.get(sig)
             if runner is None:
                 # one capture per entry: a graph's pool holds the step's
                 # intermediates, so a superseded one is dropped first
@@ -623,7 +693,7 @@ class CostBook:
                 cache[sig] = runner
             entry.calls += 1
             entry.replays += int(times)
-            return runner.run(state, leaves, int(times))
+            return runner.run(state, leaves, int(times), tracer, entry)
 
         dispatch.costbook_entry = entry
         return dispatch
@@ -634,7 +704,9 @@ class CostBook:
         t0 = time.perf_counter()
         rec: Dict[str, Any] = {}
         if graph and on_cuda:
-            runner = _Graph(fn, state, counters)
+            with self.tracer.span("costbook.capture", entry=entry.name, cause=cause):
+                runner = _Graph(fn, state, counters, self.tracer,
+                                phase_events=bool(dict(sig[2]).get("phase_events")))
             rec.update(runner.cost)
         else:
             runner = _Eager(fn, rec)
@@ -652,7 +724,7 @@ class CostBook:
         })
         if runner.graph:
             rec.update(pool_bytes=runner.pool_bytes, max_allocated_bytes=runner.max_allocated,
-                       copy_backs=runner.copy_backs,
+                       copy_backs=runner.copy_backs, copy_back_bytes=runner.copy_back_bytes,
                        launches_per_replay=runner.launches_per_replay,
                        kernel_launches_per_replay=dict(runner.per_replay))
         entry.runner = runner if runner.graph else None
@@ -725,6 +797,15 @@ class CostBook:
     @property
     def capture_s_total(self) -> float:
         return sum(e.capture_s_total for e in self.entries.values())
+
+    def device_spans(self, name: str) -> Optional[List[Tuple[str, float]]]:
+        """``(name, ms)`` of each span the last replay of ``name``'s graph
+        timed on the device, from the graph's start to the end of its
+        copy-backs (None unless the graph was captured with
+        ``phase_events``).  Read after a device sync."""
+        runner = getattr(self.entries.get(name), "runner", None)
+        marks = getattr(runner, "marks", None)
+        return None if marks is None else marks.spans()
 
     def launches_per_replay(self, name: str) -> Optional[int]:
         """Device launches of one replay of ``name``'s current graph (None

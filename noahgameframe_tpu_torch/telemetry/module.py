@@ -17,7 +17,7 @@ sampled lazily at scrape time:
   (warm-up plus capture), ``nf_graph_launches_per_replay``, the
   ``nf_hbm_*`` memory gauges, the per-entry cost gauges
   ``nf_entry_{flops,bytes_accessed,temp_bytes}`` (no samples until an
-  entry carries a cost record) and ``nf_pallas_fallback_total`` (0);
+  entry carries a cost record);
 - a role's net sources: per-opcode ``nf_net_msgs_total`` /
   ``nf_net_bytes_total`` (direction/link/opcode labels) from every
   NetServerModule and NetClientModule pool (:meth:`add_net_source`), the
@@ -127,12 +127,6 @@ class TelemetryModule(Module):
             "nf_entry_temp_bytes", lambda: self.costbook.cost_samples("temp_bytes"),
             kind="gauge", help="temp buffer bytes per entry (latest cost record)",
         )
-        # the port never downgrades a fold engine: the JAX package counts
-        # its fused engine's VMEM fallbacks here
-        reg.register_callback(
-            "nf_pallas_fallback_total", lambda: [({}, 0.0)], kind="counter",
-            help="fused-engine downgrades to the split-table path (always 0 on the port)",
-        )
         reg.register_callback(
             "nf_hbm_bytes_in_use", lambda: self._hbm("live_bytes", fresh=True),
             kind="gauge", help="device allocator live bytes",
@@ -224,7 +218,11 @@ class TelemetryModule(Module):
         self._kernel_attached = True
         self.census.kernel = kernel
         self.tick.kernel = kernel
+        # one tracer for the kernel's spans and its cost book's, its
+        # spans stamped with the kernel's tick count as their frame
         kernel.tracer = self.tracer
+        kernel.costbook.tracer = self.tracer
+        self.tracer.frame_source = lambda: kernel.tick_count
         self.costbook = kernel.costbook
         self.costbook.host_census = self.census.device_bytes
         reg = self.registry

@@ -521,3 +521,53 @@ def test_spatial_walk_on_cuda_matches_cpu(cuda):
         want = _walk(pos, gid, tick, geom)
         got = _walk(pos.to(cuda), gid.to(cuda), tick, geom).cpu()
         assert torch.equal(got, want), tick
+
+
+def test_traced_capture_times_its_phases_on_the_card(cuda):
+    """With the world's tracer off, ``kernel.run``'s graph has no event
+    node; turning it on re-captures (cause ``static:phase_events``) with
+    one event-record node at the graph's start and after each boundary,
+    and otherwise the same nodes, launches and copy-back bytes.  The
+    replay's device spans are named by the boundaries, and at 1M NPCs
+    their sum is within 3 % of the replay timed by two events around
+    it on the stream."""
+    from noahgameframe_tpu_torch.telemetry.tracing import SpanTracer
+
+    event_record = 7  # CU_GRAPH_NODE_TYPE_EVENT_RECORD
+    tr = SpanTracer()
+    w = build_benchmark_world(1_000_000, seed=5, device="cuda", tracer=tr)
+    k = w.kernel
+    k.run_device(1, reconcile=False)
+    entry = k.costbook.entries["kernel.run"]
+    off_types, off_last = entry.runner.node_types(), dict(entry.last)
+    assert event_record not in off_types and k.device_spans() is None
+    assert off_last["copy_back_bytes"] > 0 and off_last["copy_backs"] > 0
+    tr.enabled = True
+    k.run_device(1, reconcile=False)
+    assert entry.causes == {"static:phase_events": 1}
+    names = (["nf.schedule"] + [f"nf.phase.{p.name}" for p in k._composed]
+             + ["nf.step", "nf.copy_back"])
+    on_types = entry.runner.node_types()
+    assert on_types[event_record] == len(names) + 1
+    assert {t: n for t, n in on_types.items() if t != event_record} == off_types
+    for key in ("launches_per_replay", "copy_backs", "copy_back_bytes"):
+        assert entry.last[key] == off_last[key], key
+    copy_ins = entry.copy_ins
+    sums, outer = [], []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        # the card sleeps while the host dispatches, so the two events
+        # enclose the replay's device time alone
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        k.run_device(1, reconcile=False)
+        b.record()
+        torch.cuda.synchronize()
+        spans = k.device_spans()
+        assert [n for n, _ in spans] == names and all(ms >= 0 for _, ms in spans)
+        sums.append(sum(ms for _, ms in spans))
+        outer.append(a.elapsed_time(b))
+    assert entry.copy_ins == copy_ins
+    s, o = sorted(sums)[2], sorted(outer)[2]
+    assert 0.97 * o <= s <= o * 1.001 + 0.005, (sums, outer)
