@@ -530,7 +530,110 @@ def phase_kernels():
         "timing_1m": timing})
     max_err = {"combat_fold": max(r["err"][0] for r in results.values()),
                "fused_neighborhood": max(r["err"][1] for r in results.values())}
-    return timing, max_err
+    rng_timing, rng_err = threefry_vs_plain()
+    return {**timing, **rng_timing}, {**max_err, **rng_err}
+
+
+# -- phase 2: the tick's threefry stream -----------------------------------------
+
+
+def wander_population(n, spec, extent, seed, dev=None):
+    """A movement population on banks of the NPC class's widths: random
+    walkers, forced arrivals (TargetPos = Position), walkers beside the
+    walls seeking beyond them, dead rows beyond the walls, gates and HP at
+    0 or below.  (alive, i32, vec) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    q = n // 8
+    vec = rng.uniform(0.0, extent, (n, spec.n_vec, 3)).astype(np.float32)
+    p, g = spec.slot("Position").col, spec.slot("TargetPos").col
+    vec[:q, g, :2] = vec[:q, p, :2]
+    vec[q:2 * q, p, :2] = rng.uniform(0.0, 0.05, (q, 2))
+    vec[q:2 * q, g, :2] = rng.uniform(-50.0, -1.0, (q, 2))
+    vec[2 * q:3 * q, p, :2] = extent - rng.uniform(0.0, 0.05, (q, 2))
+    vec[2 * q:3 * q, g, :2] = extent + rng.uniform(1.0, 50.0, (q, 2))
+    vec[3 * q:4 * q, p, :2] = rng.choice([-3.0, extent + 3.0], (q, 2))
+    i32 = rng.integers(-1000, 1000, (n, spec.n_i32)).astype(np.int32)
+    i32[:, spec.slot("MOVE_SPEED").col] = rng.integers(0, 300_000, n)
+    i32[:, spec.slot("MOVE_GATE").col] = np.where(rng.random(n) < 0.15, 1, 0)
+    i32[:, spec.slot("HP").col] = np.where(rng.random(n) < 0.15, 0, 100)
+    alive = rng.random(n) < 0.9
+    alive[3 * q:4 * q] = False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev or DEV)  # noqa: E731
+    return t(alive), t(i32), t(vec)
+
+
+def threefry_vs_plain():
+    """nf::wander on the 1M world's 2^20 NPC rows (its bank widths, columns,
+    extent and dt) at shard offsets 0, 1,555,554 and 2^32 - 2,000 (across
+    the counter's high word), and nf::fold_in over keys and data words 0,
+    2^31 and 2^32 - 1 among others, each against its plain version
+    (wander's on the card and on the CPU) bit for bit.  Times: mean of 20
+    launches in a graph (CUDA events); wander's bound: each row's alive
+    byte, three i32 columns and its vec row read, the vec row written."""
+    from noahgameframe_tpu_torch.game.movement import SPEED_UNIT
+    from noahgameframe_tpu_torch.core.prng import prng_key
+    from noahgameframe_tpu_torch.core.rounding import recip32
+
+    small = gw.build_benchmark_world(1024, seed=SEED, device="cpu")
+    spec = small.kernel.store.spec("NPC")
+    cap = 1 << int(np.ceil(np.log2(N_MAIN)))
+    extent = float(np.sqrt(N_MAIN / 0.4))  # the 1M world's
+    args = dict(pos_col=spec.slot("Position").col, tgt_col=spec.slot("TargetPos").col,
+                speed_col=spec.slot("MOVE_SPEED").col, gate_col=spec.slot("MOVE_GATE").col,
+                hp_col=spec.slot("HP").col, speed_scale=recip32(SPEED_UNIT),
+                dt=float(np.float32(small.kernel.schedule.dt)), extent=extent)
+    alive, i32, vec = wander_population(cap, spec, float(np.float32(extent)), 21)
+    key = sck.fold_in(prng_key(SEED + 21, DEV), 5)
+    cases, err = {}, 0
+    for offset in (0, 2 * 777_777, 2**32 - 2 * 1000):
+        got = sck.wander(alive, i32, vec, key, **args, offset=offset)
+        card = sck.wander_plain(alive, i32, vec, key, **args, offset=offset)
+        bad = int((got.view(torch.int32) != card.view(torch.int32)).sum())
+        if offset == 0:
+            cpu = sck.wander_plain(alive.cpu(), i32.cpu(), vec.cpu(), key.cpu(), **args,
+                                   offset=offset)
+            bad += int((got.cpu().view(torch.int32) != cpu.view(torch.int32)).sum())
+        drew = (got[:, args["tgt_col"], :2] != vec[:, args["tgt_col"], :2]).any(-1)
+        pos = got[:, args["pos_col"], :2]
+        cases[offset] = {"words_off": bad, "drew": int(drew.sum()),
+                         "at_zero": int((pos == 0.0).sum()),
+                         "at_extent": int((pos == float(np.float32(extent))).sum())}
+        check(bad == 0, f"nf::wander equals its plain version at offset {offset}")
+        check(cases[offset]["drew"] > 1000 and cases[offset]["at_zero"] > 100
+              and cases[offset]["at_extent"] > 100, "the wander cases draw and clamp")
+        err = max(err, bad)
+    top, half = 2**32 - 1, 2**31
+    keys = [(0, 0), (0, half), (top, top), (12345, 67890)]
+    words = [0, 1, half, top, 977]
+    fold_bad = 0
+    for kw in keys:
+        kc = torch.tensor(kw, dtype=torch.int64)
+        for d in words:
+            want = sck.fold_in_plain(kc, d)
+            as32 = torch.tensor(int(np.uint32(d).view(np.int32)), dtype=torch.int32, device=DEV)
+            for data in (d, as32):
+                fold_bad += int(not torch.equal(sck.fold_in(kc.to(DEV), data).cpu(), want))
+    check(fold_bad == 0, "nf::fold_in equals its plain version")
+    tick = torch.tensor(977, dtype=torch.int32, device=DEV)
+    row_bytes = 1 + 3 * 4 + 2 * vec.shape[1] * 3 * 4
+    b = bound_ms(cap * row_bytes, 0)
+    timing = {
+        "wander": dict(
+            ms=time_ms(lambda: sck.wander(alive, i32, vec, key, **args), graph=True),
+            eager_ms=time_ms(lambda: sck.wander(alive, i32, vec, key, **args)),
+            plain_ms=time_ms(lambda: sck.wander_plain(alive, i32, vec, key, **args), reps=5),
+            bound_ms=b[0], bound_by=b[1], bytes=cap * row_bytes, rows=cap),
+        "fold_in": dict(
+            ms=time_ms(lambda: sck.fold_in(key, tick), graph=True),
+            eager_ms=time_ms(lambda: sck.fold_in(key, tick)),
+            plain_ms=time_ms(lambda: sck.fold_in_plain(key, tick), reps=5),
+            bound_ms=None, bound_by="launch"),
+    }
+    emit({"phase": "threefry_vs_plain", "tolerance": 0, "rows": cap,
+          "vec_columns": int(vec.shape[1]), "i32_columns": int(i32.shape[1]),
+          "wander_cases": cases, "fold_in_cases": len(keys) * len(words) * 2,
+          "timing": timing})
+    return timing, {"wander": err, "fold_in": fold_bad}
 
 
 # -- phase 2: the kernels' room axis --------------------------------------------
@@ -613,7 +716,7 @@ def room_kernels_vs_plain(pop, cell, width, kv, ka, radius, timed: bool):
         p1 = vmap(lambda v, a: sck.combat_fold_plain(*tables(v, a), radius))(vp, ap)
         p2 = vmap(lambda b, v, a: sck.fused_neighborhood_plain(b, *slots(v, a), radius))(
             bank, vs, as_)
-    check(all(after[k] == before[k] + 1 for k in before),
+    check(all(after[k] == before[k] + 1 for k in ("combat_fold", "fused_neighborhood")),
           "one batched launch per kernel for all rooms")
     loop1 = [sck.combat_fold(*tables(vp[r], ap[r]), radius) for r in range(n_rooms)]
     loop2 = [sck.fused_neighborhood(bank[r], *slots(vs[r], as_[r]), radius)
@@ -836,6 +939,8 @@ def phase_main_path():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(graph["digest"] == eager["digest"], "graph and eager digests equal after 90 ticks")
     check(launches["combat_fold"] == 90, "kernel 1 ran once per tick of the main path")
+    check(launches["wander"] == 90 and launches["fold_in"] == 180,
+          "the wander kernel ran once per tick, fold_in twice (tick key, ctx.rng())")
     graph_ticks = tick_times(k, 30, graph=True)
     MAIN_TICK_MS.append(statistics.median(graph_ticks))
     graph_prof = profile_ticks(k, 10, host_ops=False, graph=True)
@@ -4912,7 +5017,8 @@ PROBE_REL = "kernel/kernel.py"
 PROBE_FN = ("Kernel", "_pack_summary")
 #: each hand kernel and the custom ops that launch it
 KERNEL_OPS = {"combat_fold": ("nf::combat_fold",),
-              "fused_neighborhood": ("nf::slot_rows", "nf::fused_neighborhood")}
+              "fused_neighborhood": ("nf::slot_rows", "nf::fused_neighborhood"),
+              "wander": ("nf::wander",), "fold_in": ("nf::fold_in",)}
 
 
 def probe_source():
@@ -4994,8 +5100,8 @@ def phase_lint(card: str, max_err: dict):
     1. ``run_lint`` over the port package against the committed baseline:
        open, suppressed and baselined counts, the rules, the seconds; open
        must be 0 and no baseline entry stale.  ``CUSTOM_OP_PARITY_TESTS``'
-       keys are exactly the three ``nf::`` ops behind ``KERNELS``' two
-       kernels, each registered with torch, and phase 2 held both kernels
+       keys are exactly the five ``nf::`` ops behind ``KERNELS``' four
+       kernels, each registered with torch, and phase 2 held every kernel
        at ``max_abs_err == 0`` in this run (the row tables of
        ``nf::slot_rows`` equal to ``slot_rows`` is one of its checks).
     2. The dynamic twin of ``capture-safety``: a ``.item()`` injected
@@ -5047,7 +5153,7 @@ def phase_lint(card: str, max_err: dict):
     reg = sck.CUSTOM_OP_PARITY_TESTS
     check(set(KERNEL_OPS) == set(sck.KERNELS), "every hand kernel has its custom ops")
     check(set(reg) == {op for ops in KERNEL_OPS.values() for op in ops},
-          "the registry's keys are exactly the three nf:: ops")
+          "the registry's keys are exactly the kernels' nf:: ops")
     for op in reg:
         check(hasattr(torch.ops.nf, op.partition("::")[2]), f"{op} is registered with torch")
     for name in KERNEL_OPS:

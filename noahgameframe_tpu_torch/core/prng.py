@@ -16,7 +16,9 @@ the three ``jax.random`` calls the tick makes, under jax's default
 
 A key is an int64 tensor ``[2]`` holding two uint32 words.  uint32
 arithmetic runs in int64 with a ``0xFFFFFFFF`` mask, so every device and
-every torch build gives the same bits.
+every torch build gives the same bits.  These are the plain versions: on
+a card the tick's ``fold_in`` and the movement phase's draw run as one
+kernel each (``ops/stencil_cuda.py`` ``fold_in`` and ``wander``).
 """
 
 from __future__ import annotations

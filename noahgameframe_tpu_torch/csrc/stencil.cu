@@ -1,6 +1,6 @@
-// The combat stencil folds for Hopper (sm_90a), bound through a plain C
-// interface (ops/stencil_cuda.py loads this file's shared library with
-// ctypes and plans every launch).  Build:
+// The combat stencil folds and the tick's threefry stream for Hopper
+// (sm_90a), bound through a plain C interface (ops/stencil_cuda.py loads
+// this file's shared library with ctypes and plans every launch).  Build:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libnf_stencil.so stencil.cu
@@ -68,6 +68,17 @@
 // - Where even a one-cell halo does not fit, the *_chunk kernels run one
 //   block per cell and stream each neighbor cell's slots through shared
 //   memory in chunks, with the first design's arithmetic.
+//
+// wander_kernel replaces the JAX package's movement phase
+// (noahgameframe_tpu/game/movement.py:42) and fold_in_kernel its
+// jax.random.fold_in of the tick key (kernel/kernel.py:401) and of
+// ctx.rng(): both run one Threefry-2x32 device function in native uint32
+// arithmetic, where the plain versions (core/prng.py) emulate uint32 with
+// int64 aten ops, seven kernels a rotation.  wander_kernel takes one row
+// a thread: it reads alive, MOVE_SPEED, MOVE_GATE, HP and the row's vec
+// row and writes the row's new vec row, drawing a target only for the
+// rows that arrive.  At 2^20 rows that is ~61 MB of least bytes (0.018
+// ms); the three i32 columns cost a 32-byte sector each.
 //
 // Parity: the reference (the JAX package's XLA build) evaluates the
 // square distance as one fused multiply-add, fma(dx, dx, dy*dy).  The
@@ -914,6 +925,122 @@ __global__ void slot_rows_kernel(const int* __restrict__ vslot, const int* __res
   if (as >= 0 && as < adump) atab[room * adump + as] = row + 1;
 }
 
+// -- the tick's threefry stream and the wander phase -----------------------------
+
+// Threefry-2x32 with 20 rounds, jax.random's hash (core/prng.py
+// threefry2x32): the counter words (x0, x1) hashed in place under the key
+// words (k0, k1), in native uint32 arithmetic.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
+                                             uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, rot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+}
+
+// fold_in(key, data) = threefry2x32(key, (0, data)) for R keys at once:
+// key r is the uint32 pair held in keys[2r] and keys[2r + 1], its data
+// word the low 32 bits of data[r] (int32, or int64 when data_is_64), or
+// `value` when data is null.  The new key's words go to out[2r], out[2r + 1].
+__global__ void fold_in_kernel(const long long* __restrict__ keys, const void* __restrict__ data,
+                               int data_is_64, uint32_t value, int R,
+                               long long* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  uint32_t d = value;
+  if (data != nullptr)
+    d = data_is_64 ? (uint32_t)((const long long*)data)[r] : (uint32_t)((const int*)data)[r];
+  uint32_t x0 = 0, x1 = d;
+  threefry2x32((uint32_t)keys[2 * r], (uint32_t)keys[2 * r + 1], x0, x1);
+  out[2 * r] = (long long)x0;
+  out[2 * r + 1] = (long long)x1;
+}
+
+// jax.random.uniform's float32 of flat counter i, on [lo, lo + span): the
+// top 23 of the 32 bits (the xor of the two threefry words) times 2^-23,
+// scaled, shifted and held at lo, each step rounded as core/prng.py's.
+__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1, unsigned long long i,
+                                            float lo, float span) {
+  uint32_t x0 = (uint32_t)(i >> 32), x1 = (uint32_t)i;
+  threefry2x32(k0, k1, x0, x1);
+  const float f = __fmul_rn(__uint2float_rn((x0 ^ x1) >> 9), 1.1920928955078125e-07f);
+  const float u = __fadd_rn(__fmul_rn(f, span), lo);
+  return u < lo ? lo : u;
+}
+
+// torch.clamp(x, 0, hi): NaN passes, -0 becomes +0.
+__device__ __forceinline__ float clamp_extent(float x, float hi) {
+  x = (x > 0.0f || x != x) ? x : 0.0f;
+  return x > hi ? hi : x;
+}
+
+// The wander phase (game/movement.py), one thread a row of R rooms of C
+// rows laid out back to back: seek TargetPos at the row's speed and, once
+// within one step, take a fresh target from the room's key (keys[2 room]
+// and the word after it).  The row's whole vec row is written to `out`
+// (Position.xy and TargetPos.xy replaced, every other component copied);
+// nothing is written in place.
+// Each float32 step rounds as the plain phase rounds it (core/rounding.py):
+// the square sum is fma(d1, d1, d0*d0) and a walker's new position
+// fma(d / dist, step, pos).  A column index below 0 (gate, hp) is absent.
+__global__ void wander_kernel(const bool* __restrict__ alive, const int* __restrict__ i32,
+                              const float* __restrict__ vec, const long long* __restrict__ keys,
+                              long long total, int C, int ni, int nv,
+                              int pos_col, int tgt_col, int speed_col, int gate_col, int hp_col,
+                              float speed_scale, float dt, float extent, long long offset,
+                              float* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long room = t / C;
+  const long long row = t - room * C;
+  const int* irow = i32 + t * ni;
+  const float* vin = vec + t * nv * 3;
+  float* vout = out + t * nv * 3;
+  for (int c = 0; c < nv * 3; ++c) vout[c] = vin[c];
+
+  const float p0 = vin[pos_col * 3], p1 = vin[pos_col * 3 + 1];
+  const float g0 = vin[tgt_col * 3], g1 = vin[tgt_col * 3 + 1];
+  float speed = __fmul_rn(__int2float_rn(irow[speed_col]), speed_scale);
+  if (gate_col >= 0 && irow[gate_col] > 0) speed = 0.0f;
+  if (hp_col >= 0 && !(irow[hp_col] > 0)) speed = 0.0f;
+  const float step = __fmul_rn(speed, dt);
+  const float d0 = __fsub_rn(g0, p0), d1 = __fsub_rn(g1, p1);
+  const float sq = __fmaf_rn(d1, d1, __fmul_rn(d0, d0));
+  const float dist = __fsqrt_rn(__fadd_rn(sq, 1e-12f));
+  const bool arrived = dist <= (step < 1e-6f ? 1e-6f : step);
+  const bool live = alive[t];
+
+  float n0 = p0, n1 = p1;
+  if (live) {
+    if (arrived) {
+      n0 = __fadd_rn(p0, d0);
+      n1 = __fadd_rn(p1, d1);
+    } else {
+      n0 = __fmaf_rn(__fdiv_rn(d0, dist), step, p0);
+      n1 = __fmaf_rn(__fdiv_rn(d1, dist), step, p1);
+    }
+  }
+  vout[pos_col * 3] = clamp_extent(n0, extent);
+  vout[pos_col * 3 + 1] = clamp_extent(n1, extent);
+  if (live && arrived) {
+    const long long* k = keys + 2 * room;
+    const uint32_t k0 = (uint32_t)k[0], k1 = (uint32_t)k[1];
+    const unsigned long long i = (unsigned long long)(offset + 2 * row);
+    vout[tgt_col * 3] = uniform_at(k0, k1, i, 0.0f, extent);
+    vout[tgt_col * 3 + 1] = uniform_at(k0, k1, i + 1, 0.0f, extent);
+  }
+}
+
 // Raise a kernel's dynamic shared-memory ceiling once per device.
 cudaError_t allow_smem(const void* fn, int bytes, int* granted) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1019,6 +1146,32 @@ extern "C" int nf_fused_neighborhood(const float* bank, const int* vtab, const i
     fused_neighborhood_kernel<<<(unsigned)blocks, threads, smem, st>>>(
         bank, vtab, atab, H, W, Kv, Ka, r2, ty, tx, (int)per_room, N, inc, bestr, nbr);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nf_fold_in(const long long* keys, const void* data, int data_is_64,
+                          unsigned value, int R, long long* out, void* stream) {
+  if (R < 0) return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  fold_in_kernel<<<(R + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      keys, data, data_is_64, (uint32_t)value, R, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nf_wander(const bool* alive, const int* i32, const float* vec,
+                         const long long* keys, int R, int C, int ni, int nv, int pos_col,
+                         int tgt_col, int speed_col, int gate_col, int hp_col, float speed_scale,
+                         float dt, float extent, long long offset, float* out, void* stream) {
+  if (R < 0 || C < 0 || pos_col < 0 || pos_col >= nv || tgt_col < 0 || tgt_col >= nv ||
+      speed_col < 0 || speed_col >= ni || gate_col >= ni || hp_col >= ni || offset < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)R * C;
+  if (total == 0) return 0;
+  const long long blocks = room_blocks(1, (total + 255) / 256);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  wander_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      alive, i32, vec, keys, total, C, ni, nv, pos_col, tgt_col, speed_col, gate_col, hp_col,
+      speed_scale, dt, extent, offset, out);
   return (int)cudaGetLastError();
 }
 

@@ -62,11 +62,11 @@ import torch
 from ..core.datatypes import Bank, Guid, Value
 from ..core.device import resolve_device
 from ..core.element import ElementStore
-from ..core.prng import MASK32, fold_in
+from ..core.prng import MASK32
 from ..core.schema import ClassRegistry
 from ..core.store import EntityStore, StoreConfig, WorldState
 from ..core.tree import flatten, unflatten
-from ..ops.stencil_cuda import KERNELS
+from ..ops.stencil_cuda import KERNELS, fold_in
 from ..telemetry.costbook import CostBook
 from ..telemetry.tracing import device_annotation as _annotate
 from .events import DeviceEvent, EventModule

@@ -1,5 +1,5 @@
-"""The combat stencil folds: hand-written CUDA kernels and their plain
-PyTorch versions.
+"""The combat stencil folds and the tick's threefry stream: hand-written
+CUDA kernels and their plain PyTorch versions.
 
 Two kernels in ``csrc/stencil.cu`` replace the JAX package's two Pallas
 kernels (``noahgameframe_tpu/ops/stencil_pallas.py``):
@@ -12,6 +12,17 @@ kernels (``noahgameframe_tpu/ops/stencil_pallas.py``):
   the same fold gathered straight from a ``[N, 6]`` feature bank through
   the slot assignments, plus the AOI occupancy count ``nbr``.  Its plain
   version is :func:`fused_neighborhood_plain`.
+
+Two more kernels of the same file compute the tick's threefry stream in
+native uint32 arithmetic (``core/prng.py`` emulates it with int64 ops):
+
+- :func:`wander` replaces the JAX package's movement phase
+  (``game/movement.py``'s ``_move_phase``): the seek step, the threefry
+  draw of fresh targets and the target refresh in one launch.  Its plain
+  version, :func:`wander_plain`, is the port's composite phase.
+- :func:`fold_in` replaces ``jax.random.fold_in`` of the tick key and of
+  ``ctx.rng()``: one launch for what the int64 emulation takes ~180 ops
+  for.  Its plain version, :func:`fold_in_plain`, is ``core/prng.py``'s.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  The
@@ -53,9 +64,11 @@ import subprocess
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..core.rounding import fma32
+from ..core import prng
+from ..core.rounding import fma32, sqrt32
 from .interest import scope_mask
 from .stencil import CellSlots, CellTable, stencil_fold
 
@@ -95,6 +108,8 @@ KERNELS = {
         "combat_fold", "noahgameframe_tpu/ops/stencil_pallas.py:133"),
     "fused_neighborhood": CudaKernel(
         "fused_neighborhood", "noahgameframe_tpu/ops/stencil_pallas.py:426"),
+    "wander": CudaKernel("wander", "noahgameframe_tpu/game/movement.py:42"),
+    "fold_in": CudaKernel("fold_in", "noahgameframe_tpu/kernel/kernel.py:401"),
 }
 
 
@@ -105,6 +120,8 @@ CUSTOM_OP_PARITY_TESTS = {
     "nf::combat_fold": "tests/test_torch_cuda.py",
     "nf::slot_rows": "tests/test_torch_cuda.py",
     "nf::fused_neighborhood": "tests/test_torch_cuda.py",
+    "nf::wander": "tests/test_torch_cuda.py",
+    "nf::fold_in": "tests/test_torch_cuda.py",
 }
 
 
@@ -392,6 +409,10 @@ def library() -> ctypes.CDLL:
     lib.nf_fused_neighborhood.argtypes = [p, p, p, i, i, i, i, i, i, f, i, i, i, i, i,
                                           p, p, p, p]
     lib.nf_fused_neighborhood.restype = i
+    lib.nf_fold_in.argtypes = [p, p, i, ctypes.c_uint, i, p, p]
+    lib.nf_fold_in.restype = i
+    lib.nf_wander.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, f, q, p, p]
+    lib.nf_wander.restype = i
     lib.nf_error_string.argtypes = [i]
     lib.nf_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -667,3 +688,176 @@ def fused_neighborhood_planned(bank: torch.Tensor, vic_slots: CellSlots,
     vtab, atab = row_tables(vic_slots, att_slots, bank.shape[-2])
     return torch.ops.nf.fused_neighborhood(bank, vtab, atab, w, vic_slots.bucket,
                                            att_slots.bucket, _r2(radius), *_plan_args(plan))
+
+
+# -- the tick's threefry stream: nf::fold_in and nf::wander -------------------
+
+
+def fold_in_plain(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` in int64 ops (:func:`prng.fold_in`)."""
+    return prng.fold_in(key, data)
+
+
+def wander_plain(alive: torch.Tensor, i32: torch.Tensor, vec: torch.Tensor, key: torch.Tensor,
+                 pos_col: int, tgt_col: int, speed_col: int, gate_col: int, hp_col: int,
+                 speed_scale: float, dt: float, extent: float, offset: int = 0) -> torch.Tensor:
+    """The wander phase in plain PyTorch: seek ``vec[:, tgt_col]`` at
+    ``i32[:, speed_col] * speed_scale`` units a second (0 where the gate
+    column is > 0 or the HP column <= 0; a column below 0 is absent), and
+    when within one step of it take a fresh uniform target in ``[0,
+    extent)`` from ``key`` (flat counter ``offset + 2 * row + component``).
+    Returns a new ``vec`` bank with Position.xy and TargetPos.xy replaced;
+    ``dt`` and ``speed_scale`` are float32 values."""
+    pos = vec[:, pos_col, :2]  # [C, 2]
+    tgt = vec[:, tgt_col, :2]
+    speed = i32[:, speed_col].to(torch.float32) * speed_scale
+    if gate_col >= 0:
+        speed = torch.where(i32[:, gate_col] > 0, 0.0, speed)
+    if hp_col >= 0:
+        speed = torch.where(i32[:, hp_col] > 0, speed, 0.0)
+    step = speed * dt  # [C]
+
+    delta = tgt - pos
+    # the reference sums the two squares as fma(d1, d1, d0*d0)
+    sq = fma32(delta[:, 1], delta[:, 1], delta[:, 0] * delta[:, 0])
+    dist = sqrt32(sq + float(np.float32(1e-12)))
+    arrived = dist <= torch.clamp(step, min=float(np.float32(1e-6)))
+    # fresh uniform target for arrived walkers (dead/rooted ones have
+    # step 0 and never "arrive" once a target is outstanding)
+    new_tgt = prng.uniform(key, (pos.shape[0], 2), 0.0, extent, offset=offset)
+    tgt = torch.where((arrived & alive)[:, None], new_tgt, tgt)
+    # pos + where(arrived, delta, delta/dist*step): the reference fuses
+    # the walking arm into fma(delta/dist, step, pos)
+    walk = fma32(delta / dist[:, None], step[:, None].expand_as(delta), pos)
+    moved = torch.where(arrived[:, None], pos + delta, walk)
+    new_pos = torch.where(alive[:, None], moved, pos)
+    new_pos = torch.clamp(new_pos, 0.0, float(np.float32(extent)))
+
+    out = vec.clone()
+    out[:, pos_col, :2] = new_pos
+    out[:, tgt_col, :2] = tgt
+    return out
+
+
+def _launch_fold_in(key: torch.Tensor, data: Optional[torch.Tensor], value: int,
+                    lead: Tuple[int, ...]) -> torch.Tensor:
+    """fold_in_kernel over the keys of ``lead`` (``()``: one key ``[2]``,
+    ``(R,)``: ``[R, 2]``); ``data`` holds one int32 or int64 word a key, or
+    is None for the constant ``value``."""
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError(f"fold_in_kernel runs on cuda, not {dev}")
+    rooms = _rooms_of(lead)
+    _check(key, "key", torch.int64, (*lead, 2), dev)
+    if data is not None:
+        if data.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"fold_in data dtype {data.dtype}, expected int32 or int64")
+        _check(data, "fold_in data", data.dtype, lead, dev)
+    out = torch.empty_like(key)
+    lib = library()
+    with _on(dev):
+        err = lib.nf_fold_in(
+            key.data_ptr(), None if data is None else data.data_ptr(),
+            int(data is not None and data.dtype == torch.int64), value & prng.MASK32, rooms,
+            out.data_ptr(), _stream(dev))
+    _raise_on(lib, err, "fold_in_kernel")
+    KERNELS["fold_in"].launches += 1
+    return out
+
+
+@torch.library.custom_op("nf::fold_in", mutates_args=())
+def _fold_in_op(key: torch.Tensor, data: Optional[torch.Tensor], value: int) -> torch.Tensor:
+    return _launch_fold_in(key.contiguous(), None if data is None else data.contiguous(),
+                           value, ())
+
+
+@_fold_in_op.register_fake
+def _(key, data, value):
+    return torch.empty_like(key)
+
+
+@torch.library.register_vmap("nf::fold_in")
+def _(info, in_dims, key, data, value):
+    r = info.batch_size
+    data = None if data is None else _room_front(data, in_dims[1], r)
+    return _launch_fold_in(_room_front(key, in_dims[0], r), data, value, (r,)), 0
+
+
+def _launch_wander(alive: torch.Tensor, i32: torch.Tensor, vec: torch.Tensor,
+                   key: torch.Tensor, lead: Tuple[int, ...], cols, speed_scale: float,
+                   dt: float, extent: float, offset: int) -> torch.Tensor:
+    """wander_kernel over the rooms of ``lead`` (``()``: one world,
+    ``(R,)``: R rooms back to back, a key a room); ``cols`` = (pos, tgt,
+    speed, gate, hp)."""
+    dev = vec.device
+    if dev.type != "cuda":
+        raise ValueError(f"wander_kernel runs on cuda, not {dev}")
+    rooms = _rooms_of(lead)
+    c, nv = vec.shape[-3], vec.shape[-2]
+    ni = i32.shape[-1]
+    _check(vec, "vec bank", torch.float32, (*lead, c, nv, 3), dev)
+    _check(i32, "i32 bank", torch.int32, (*lead, c, ni), dev)
+    _check(alive, "alive", torch.bool, (*lead, c), dev)
+    _check(key, "key", torch.int64, (*lead, 2), dev)
+    out = torch.empty_like(vec)
+    lib = library()
+    with _on(dev):
+        err = lib.nf_wander(
+            alive.data_ptr(), i32.data_ptr(), vec.data_ptr(), key.data_ptr(), rooms, c, ni, nv,
+            *cols, speed_scale, dt, extent, offset, out.data_ptr(), _stream(dev))
+    _raise_on(lib, err, "wander_kernel")
+    KERNELS["wander"].launches += 1
+    return out
+
+
+@torch.library.custom_op("nf::wander", mutates_args=())
+def _wander_op(alive: torch.Tensor, i32: torch.Tensor, vec: torch.Tensor, key: torch.Tensor,
+               pos_col: int, tgt_col: int, speed_col: int, gate_col: int, hp_col: int,
+               speed_scale: float, dt: float, extent: float, offset: int) -> torch.Tensor:
+    return _launch_wander(alive.contiguous(), i32.contiguous(), vec.contiguous(),
+                          key.contiguous(), (), (pos_col, tgt_col, speed_col, gate_col, hp_col),
+                          speed_scale, dt, extent, offset)
+
+
+@_wander_op.register_fake
+def _(alive, i32, vec, key, pos_col, tgt_col, speed_col, gate_col, hp_col, speed_scale, dt,
+      extent, offset):
+    return torch.empty_like(vec)
+
+
+@torch.library.register_vmap("nf::wander")
+def _(info, in_dims, alive, i32, vec, key, pos_col, tgt_col, speed_col, gate_col, hp_col,
+      speed_scale, dt, extent, offset):
+    r = info.batch_size
+    out = _launch_wander(*(_room_front(x, d, r) for x, d in zip((alive, i32, vec, key), in_dims)),
+                         (r,), (pos_col, tgt_col, speed_col, gate_col, hp_col), speed_scale, dt,
+                         extent, offset)
+    return out, 0
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: CPU keys run
+    :func:`fold_in_plain`; a CUDA key launches ``fold_in_kernel`` once (for
+    all rooms under ``torch.func.vmap``).  ``data`` is an int or a
+    one-element integer tensor (the tick), read on the device with no host
+    sync."""
+    if key.device.type == "cpu":
+        return fold_in_plain(key, data)
+    if isinstance(data, torch.Tensor):
+        return torch.ops.nf.fold_in(key, data.to(device=key.device).reshape(()), 0)
+    return torch.ops.nf.fold_in(key, None, data)
+
+
+def wander(alive: torch.Tensor, i32: torch.Tensor, vec: torch.Tensor, key: torch.Tensor,
+           pos_col: int, tgt_col: int, speed_col: int, gate_col: int, hp_col: int,
+           speed_scale: float, dt: float, extent: float, offset: int = 0) -> torch.Tensor:
+    """The wander phase over one class's banks (arguments as
+    :func:`wander_plain`'s).  CPU tensors run :func:`wander_plain`; CUDA
+    tensors launch ``wander_kernel`` once, for all rooms under
+    ``torch.func.vmap``.  Returns the new ``vec`` bank."""
+    if vec.device.type == "cpu":
+        return wander_plain(alive, i32, vec, key, pos_col, tgt_col, speed_col, gate_col, hp_col,
+                            speed_scale, dt, extent, offset)
+    return torch.ops.nf.wander(alive, i32, vec, key, pos_col, tgt_col, speed_col, gate_col,
+                               hp_col, float(speed_scale), float(dt),
+                               float(np.float32(extent)), int(offset))

@@ -165,8 +165,9 @@ def test_kernel_step_costs_fold_and_gauges():
 def test_graph_capture_counts_its_first_warmup():
     """On the card the counted run is the capture's first warm-up: the
     graph entry's record carries the three costs, the temp bytes come
-    from the allocator's peak, and the fold is seen as ``nf::combat_fold``
-    (bytes counted, flops named)."""
+    from the allocator's peak, and the fold is seen as ``nf::combat_fold``,
+    the wander phase as ``nf::wander`` and the tick key and ``ctx.rng()``
+    as ``nf::fold_in`` (bytes counted, flops named)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the graph capture has no CPU mode")
     w = build_benchmark_world(4096, seed=3, device="cuda")
@@ -175,6 +176,6 @@ def test_graph_capture_counts_its_first_warmup():
     w.kernel.tick()
     last = w.kernel.costbook.entries["kernel.step"].last
     assert last["graph"] and last["flops"] > 0 and last["temp_bytes"] > 0
-    assert last["uncounted_ops"] == {"nf::combat_fold": 1}
+    assert last["uncounted_ops"] == {"nf::combat_fold": 1, "nf::fold_in": 2, "nf::wander": 1}
     # the counted warm-up is one of the capture's warm-ups: no extra launch
     assert sck.KERNELS["combat_fold"].launches - launches == 2 + 1

@@ -10,11 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from noahgameframe_tpu_torch.core import prng
+from noahgameframe_tpu_torch.core.rounding import recip32
 from noahgameframe_tpu_torch.game.world import build_benchmark_world
 from noahgameframe_tpu_torch.ops import stencil as st
 from noahgameframe_tpu_torch.ops import stencil_cuda as sc
 
 pytestmark = pytest.mark.cuda
+
+FOLDS = ("combat_fold", "fused_neighborhood")
 
 
 @pytest.fixture
@@ -46,7 +50,7 @@ def test_kernels_match_plain_versions(cuda, n, kv, ka, clump):
         cell, width, kv, ka)
     vs, ats = st.build_cell_slots_pair(t(pos), t(alive), t(attacking), cell, width, kv, ka)
     bank = t(np.stack([pos[:, 0], pos[:, 1], camp, scene, group, eff], -1))
-    before = {k: v.launches for k, v in sc.KERNELS.items()}
+    before = {k: sc.KERNELS[k].launches for k in FOLDS}
     for a, b in zip(sc.combat_fold(vt, at, radius), sc.combat_fold_plain(vt, at, radius)):
         assert torch.equal(a, b)
     for a, b in zip(sc.fused_neighborhood(bank, vs, ats, radius),
@@ -196,6 +200,9 @@ def test_graph_run_device_matches_eager(cuda, engine, skin, monkeypatch):
     captures = 1 if skin else 2
     # each capture runs 2 eager warm-up ticks; 24 ticks are replayed
     assert sc.KERNELS[name].launches - before[name] == 24 + 2 * captures
+    # the wander phase once a tick, fold_in for the tick key and ctx.rng()
+    assert sc.KERNELS["wander"].launches - before["wander"] == 24 + 2 * captures
+    assert sc.KERNELS["fold_in"].launches - before["fold_in"] == 2 * (24 + 2 * captures)
     assert graph.costbook.unexplained_since(mark) == []
     assert graph.costbook.entries["kernel.run"].causes == ({} if skin else {"rewrap": 1})
     assert graph.costbook.launches_per_replay("kernel.run") > 0
@@ -304,7 +311,7 @@ def test_batched_kernels_match_room_loop_and_vmapped_plain(cuda, rooms, width):
 
     kv, ka = 8, 6
     vp, ap, vs, as_, bank = _room_inputs(cuda, rooms, width, kv, ka, seed=width)
-    before = {k: v.launches for k, v in sc.KERNELS.items()}
+    before = {k: sc.KERNELS[k].launches for k in FOLDS}
     with no_vmap_fallback():
         k1 = torch.func.vmap(lambda v, a: sc.combat_fold(*_tables(width, kv, ka, v, a), 4.0))(
             vp, ap)
@@ -326,6 +333,137 @@ def test_batched_kernels_match_room_loop_and_vmapped_plain(cuda, rooms, width):
         assert torch.equal(k2[i], torch.stack([x[i] for x in loop2]))
         assert torch.equal(k2[i], p2[i])
     assert bool((k1[0] > 0).any()) and bool((k2[2] > 0).any())
+
+
+# -- the tick's threefry stream: nf::wander and nf::fold_in ----------------------
+
+WANDER_COLS = dict(pos_col=1, tgt_col=3, speed_col=0, gate_col=2, hp_col=4)
+WANDER_EXTENT = 1581.1388300841897
+
+
+def _wander_population(n, seed, extent=WANDER_EXTENT):
+    """(alive, i32, vec, key) on the CPU: n rows of a 4-column vec bank
+    (Position column 1, TargetPos column 3) and a 6-column i32 bank
+    (MOVE_SPEED 0, MOVE_GATE 2, HP 4), in eighths: forced arrivals
+    (TargetPos = Position), walkers beside each wall seeking beyond it,
+    dead rows beyond the walls, targets within a step, and random rows;
+    gates above 0 and HP at 0 or below scattered over all of them."""
+    rng = np.random.default_rng(seed)
+    q = n // 8
+    vec = rng.uniform(0.0, extent, (n, 4, 3)).astype(np.float32)
+    vec[:q, 3, :2] = vec[:q, 1, :2]
+    vec[q:2 * q, 1, :2] = rng.uniform(0.0, 0.05, (q, 2))
+    vec[q:2 * q, 3, :2] = rng.uniform(-50.0, -1.0, (q, 2))
+    vec[2 * q:3 * q, 1, :2] = extent - rng.uniform(0.0, 0.05, (q, 2))
+    vec[2 * q:3 * q, 3, :2] = extent + rng.uniform(1.0, 50.0, (q, 2))
+    vec[3 * q:4 * q, 1, :2] = rng.choice([-3.0, extent + 3.0], (q, 2))
+    vec[4 * q:5 * q, 3, :2] = vec[4 * q:5 * q, 1, :2] + rng.uniform(-0.1, 0.1, (q, 2))
+    i32 = rng.integers(-1000, 1000, (n, 6)).astype(np.int32)
+    i32[:, 0] = rng.integers(0, 300_000, n)  # up to 30 units/s, a unit a tick
+    i32[:, 2] = np.where(rng.random(n) < 0.15, rng.integers(1, 5, n), rng.integers(-3, 1, n))
+    i32[:, 4] = np.where(rng.random(n) < 0.15, rng.integers(-100, 1, n), rng.integers(1, 200, n))
+    alive = rng.random(n) < 0.85
+    alive[3 * q:4 * q] = False
+    key = prng.fold_in(prng.prng_key(seed, "cpu"), seed)
+    return torch.from_numpy(alive), torch.from_numpy(i32), torch.from_numpy(vec), key
+
+
+def _wander_args(dt=1 / 30, extent=WANDER_EXTENT):
+    return dict(**WANDER_COLS, speed_scale=recip32(10000.0), dt=float(np.float32(dt)),
+                extent=extent)
+
+
+def _bits(t):
+    return t.cpu().view(torch.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 2 * 777_777, 2**32 - 2 * 1000])
+def test_wander_kernel_matches_plain_phase(cuda, offset):
+    """nf::wander on 2^16 rows equals the plain phase on the CPU and on the
+    card bit for bit: forced arrivals draw, gates and HP <= 0 stop a row,
+    dead rows keep their place (clamped), walkers stop at 0 and at the
+    extent, a shard's offset (across the counter's high word) picks its
+    slice of the draw, and z and the other columns are kept."""
+    alive, i32, vec, key = _wander_population(1 << 16, offset % 1000 + 3)
+    args = _wander_args()
+    before = sc.KERNELS["wander"].launches
+    got = sc.wander(alive.to(cuda), i32.to(cuda), vec.to(cuda), key.to(cuda), **args,
+                    offset=offset)
+    assert sc.KERNELS["wander"].launches == before + 1
+    want = sc.wander_plain(alive, i32, vec, key, **args, offset=offset)
+    assert torch.equal(_bits(got), _bits(want))
+    on_card = sc.wander_plain(alive.to(cuda), i32.to(cuda), vec.to(cuda), key.to(cuda), **args,
+                              offset=offset)
+    assert torch.equal(_bits(got), _bits(on_card))
+    got = got.cpu()
+    drew = (got[:, 3, :2] != vec[:, 3, :2]).any(-1)
+    assert int(drew[: (1 << 13)].sum()) > 1000 and not bool((drew & ~alive).any())
+    pos = got[:, 1, :2]
+    assert int((pos == 0.0).sum()) > 100 and int((pos == np.float32(WANDER_EXTENT)).sum()) > 100
+    assert torch.equal(pos[~alive], vec[~alive, 1, :2].clamp(0.0, float(np.float32(WANDER_EXTENT))))
+    keep = torch.ones(4, 3, dtype=torch.bool)
+    keep[1, :2] = keep[3, :2] = False
+    assert torch.equal(_bits(got[:, keep]), _bits(vec[:, keep]))
+
+
+@pytest.mark.parametrize("rooms", [1, 3])
+def test_wander_kernel_vmapped_matches_room_loop(cuda, rooms):
+    """Under torch.func.vmap nf::wander makes ONE launch for all rooms, with
+    a key a room or one shared key, and equals a loop of one launch a room
+    and the plain phase room by room, bit for bit."""
+    from noahgameframe_tpu_torch.parallel.rooms import no_vmap_fallback
+
+    pops = [_wander_population(1 << 14, 40 + r, extent=64.0) for r in range(rooms)]
+    alive, i32, vec, key = (torch.stack([p[i] for p in pops]).to(cuda) for i in range(4))
+    args = _wander_args(extent=64.0)
+
+    def step(a, i, v, k):
+        return sc.wander(a, i, v, k, **args, offset=0)
+
+    before = sc.KERNELS["wander"].launches
+    with no_vmap_fallback():
+        got = torch.func.vmap(step)(alive, i32, vec, key)
+        shared = torch.func.vmap(step, in_dims=(0, 0, 0, None))(alive, i32, vec, key[0])
+    assert sc.KERNELS["wander"].launches == before + 2
+    for r, (a, i, v, k) in enumerate(pops):
+        assert torch.equal(_bits(got[r]), _bits(step(alive[r], i32[r], vec[r], key[r])))
+        assert torch.equal(_bits(got[r]), _bits(sc.wander_plain(a, i, v, k, **args, offset=0)))
+        assert torch.equal(_bits(shared[r]),
+                           _bits(sc.wander_plain(a, i, v, pops[0][3], **args, offset=0)))
+
+
+def test_fold_in_kernel_matches_int64_path(cuda):
+    """nf::fold_in equals its plain version (``fold_in_plain``, core/prng.py's
+    int64 fold_in) for keys and data words 0, 2^31 and 2^32 - 1 among
+    others, the data as a Python int, an int64 and an int32 tensor on the
+    card; under torch.func.vmap one launch folds every room's key."""
+    from noahgameframe_tpu_torch.parallel.rooms import no_vmap_fallback
+
+    top, half = 2**32 - 1, 2**31
+    rng = np.random.default_rng(17)
+    keys = [(0, 0), (0, half), (half, 0), (top, top), (top, 0), (12345, 67890)]
+    keys += [tuple(int(x) for x in rng.integers(0, 2**32, 2)) for _ in range(10)]
+    words = [0, 1, half, top, half - 1] + [int(x) for x in rng.integers(0, 2**32, 5)]
+    before = sc.KERNELS["fold_in"].launches
+    for kw in keys:
+        key = torch.tensor(kw, dtype=torch.int64)
+        kc = key.to(cuda)
+        for d in words:
+            want = sc.fold_in_plain(key, d)
+            as32 = torch.tensor(int(np.uint32(d).view(np.int32)), dtype=torch.int32, device=cuda)
+            for data in (d, torch.tensor(d, dtype=torch.int64, device=cuda), as32):
+                assert torch.equal(sc.fold_in(kc, data).cpu(), want), (kw, d, data)
+    assert sc.KERNELS["fold_in"].launches == before + 3 * len(keys) * len(words)
+    kt = torch.tensor(keys, dtype=torch.int64)
+    ticks = torch.from_numpy(np.resize(np.array(words, np.uint32), len(keys)).view(np.int32))
+    before = sc.KERNELS["fold_in"].launches
+    with no_vmap_fallback():
+        got = torch.func.vmap(sc.fold_in)(kt.to(cuda), ticks.to(cuda))
+        fixed = torch.func.vmap(lambda k: sc.fold_in(k, 7))(kt.to(cuda))
+    assert sc.KERNELS["fold_in"].launches == before + 2
+    for r in range(len(keys)):
+        assert torch.equal(got[r].cpu(), sc.fold_in_plain(kt[r], ticks[r]))
+        assert torch.equal(fixed[r].cpu(), sc.fold_in_plain(kt[r], 7))
 
 
 @pytest.mark.parametrize("engine", [1, 2])
@@ -365,7 +503,8 @@ def test_rooms_on_the_card_match_the_cpu(cuda, engine):
     assert sc.KERNELS[name].launches - before == 10 + 2 * 2
     for entry in ("rooms.step", "rooms.run"):
         assert gpu.costbook.entries[entry].last["graph"] is True
-        assert gpu.costbook.entries[entry].last["kernel_launches_per_replay"][name] == 1
+        per_replay = gpu.costbook.entries[entry].last["kernel_launches_per_replay"]
+        assert per_replay[name] == per_replay["wander"] == 1 and per_replay["fold_in"] == 2
 
 
 def _settled(n, device, ticks=20):
