@@ -1,5 +1,5 @@
-"""The correctness check: the program's states against the plain
-reference's trajectory.
+"""The correctness check of a ``world`` deployment: the program's states
+against the plain reference's trajectory.
 
 The reference builds each room's start state from the inputs the
 benchmark drew (:mod:`nfbench.reference.build`), then ticks on its own.
@@ -16,6 +16,9 @@ The program's copies are compared with it cell by cell, exactly:
 
 One number comes out, ``cells_off``: the state cells that differ.  Its
 limit is 0.
+
+:func:`control` is the check's control: the reference in bfloat16 in the
+program's place (``python -m nfbench.control``).
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
-from .reference.build import initial_rooms, world_inputs
-from .reference.tick import Geometry, Layout, step
+from ..reference.build import initial_rooms, world_inputs
+from ..reference.tick import Geometry, Layout, step
 
 LIMITS = {"cells_off": 0}
+CONTROL = "bfloat16"
 
 
 def cells_off(ref: Mapping[str, torch.Tensor], got: Mapping[str, torch.Tensor]) -> int:
@@ -90,3 +94,34 @@ def run_check(cfg: dict, lay: Layout, inputs: dict, start: Mapping[str, torch.Te
 
 def passed(numbers: Mapping[str, int]) -> bool:
     return all(numbers[k] <= lim for k, lim in LIMITS.items())
+
+
+def describe(stats: Mapping[str, int]) -> str:
+    """The late tick's combat, for the run's log."""
+    return (f"the late frame: {stats.get('combat_hits', 0)} hits, {stats.get('deaths', 0)} "
+            f"deaths, {stats.get('respawns', 0)} respawns")
+
+
+def readings(stats: Mapping[str, int]) -> Dict[str, int]:
+    """What the metric readers take from the check: the late tick's
+    occupied fold pairs (``pairs_per_frame``)."""
+    return {"pairs_per_frame": stats.get("pairs", 0)}
+
+
+def control(found: dict, seed: int, lay: Layout, inputs: dict,
+            start: Mapping[str, torch.Tensor], target: int,
+            fdt: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    """The reference in ``fdt`` (bfloat16; float32 is what the
+    configuration states) in the program's place, from the program's
+    ``start``: the trajectory to ``target``, the tick of the cell's early
+    checked frame, that frame, and one more frame as the late one, judged
+    by :func:`run_check` as the program's states are."""
+    cfg = found["config"]
+    geo = Geometry.from_config(cfg["geometry"])
+    st = initial_rooms(start, lay, geo, cfg["recipe"], inputs)
+    while int(st["tick"][0]) < target:
+        st, _ = step(st, lay, geo, fdt)
+    e0 = st
+    e1, _ = step(e0, lay, geo, fdt)
+    l1, _ = step(e1, lay, geo, fdt)
+    return run_check(cfg, lay, inputs, start, [e0, e1], [e1, l1])

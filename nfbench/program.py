@@ -1,25 +1,54 @@
 """The system under test, as the benchmark drives it.
 
 Everything the benchmark takes from ``noahgameframe_tpu_torch`` goes
-through this module: the deployment a configuration describes, the entry
-a traffic mix names, copies of the state that the correctness check
-judges, the column layout that the reference reads those copies by, and
-the cost book's launch count.  The program is imported inside the
-builders, after the harness has found a card.
+through this module and the modules it finds by name.  The program is
+imported inside the builders, after the harness has found a card.
 
-A configuration's ``kind`` picks its builder; ``world`` is one world of
-``entities`` NPCs, ``game.world.build_benchmark_world(entities,
-seed=seed)``.  A traffic mix's ``entry`` picks what one frame calls;
-``kernel.run_device`` is one replay of the captured tick
-(``reconcile=False``), ended by a device sync.
+A configuration's ``kind`` names ``nfbench/deployments/<kind>.py``.  It
+exposes ``deploy(cfg, seed, device)``, which builds the deployment, and
+``tiny(found)``, which cuts a found cell to a size the CPU runs in the
+harness's tests.  Anything more that ``deploy`` takes later (a span
+tracer, say) comes as an optional keyword, so that a kind without it is
+built as before.  A deployment has:
 
-The reference steps a batch of rooms; one world is a batch of one, so
-the state copies gain a leading axis of one.
+- ``entities``: the work of one frame, as the rate counts it;
+- ``leaves()``: ``(path, tensor)`` of every state leaf the check judges;
+- ``layout()``: what the check's reference reads those leaves by;
+- ``after_window()``: the work a deployment does once after the window;
+- ``launches_per_replay(book)``: device launches of one replay of the
+  cost book's entry ``book`` (None without a captured graph);
+- ``close()``: drops the program's state.
+
+The kind's module also names what the harness's fault tests break:
+``batch(dep)``, the paths of the leaves that hold the batch (one row a
+leading index), and ``answer(dep)``, a leaf path and an index of one cell
+that the step produces and the check judges.
+
+The same ``kind`` names the check, ``nfbench/checks/<kind>.py``, which
+imports the plain reference and nothing of the program: ``LIMITS`` (each
+number compared and its limit), ``CONTROL`` (the control's precision),
+``reference_inputs(cfg, seed, device)``, ``run_check(cfg, lay, inputs,
+start, early, late, stats=, max_ticks=)``, ``passed(numbers)``,
+``describe(stats)`` and ``readings(stats)`` (the run's log line and what
+the metric readers take from the check), and ``control(found, seed, lay,
+inputs, start, target, **kw)``, the reference in ``CONTROL`` precision in
+the program's place up to ``target``, the tick of the early checked frame
+(``python -m nfbench.control``).
+
+A traffic mix's ``entry`` names ``nfbench/entries/<entry>.py``, with each
+``.`` written ``_``.  It exposes ``KINDS``, the deployment kinds it
+drives; ``BOOK``, the cost-book entry that one frame replays;
+``prepare(dep)``, run once before the warm-up; and ``frame(dep)``, one
+frame, ended by a device sync.
+
+The shared helpers below copy a world's state for the check.  The
+reference steps a batch of rooms; one world is a batch of one, so the
+state copies gain a leading axis of one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -66,49 +95,3 @@ class Snapshot:
         """The copies as a batch of one room, as the reference reads them."""
         return {p: x.unsqueeze(0) for p, x in self.bufs.items()}
 
-
-class WorldDeployment:
-    """One world of ``entities`` NPCs, built by the program's recipe."""
-
-    def __init__(self, cfg: dict, seed: int, device: torch.device):
-        from noahgameframe_tpu_torch.game.world import build_benchmark_world
-
-        self.device = device
-        self.world = build_benchmark_world(int(cfg["entities"]), seed=seed, device=device)
-        self.kernel = self.world.kernel
-        self.entities = int(cfg["entities"])
-
-    def leaves(self):
-        return _leaves(self.kernel.state)
-
-    def layout(self) -> Layout:
-        return _layout(self.kernel)
-
-    def frame(self, entry: str):
-        if entry != "kernel.run_device":
-            raise ValueError(f"a world has no entry {entry!r}")
-        self.kernel.run_device(1, reconcile=False)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return None
-
-    def after_window(self) -> None:
-        """Deaths found on the device are reconciled once, after the window."""
-        self.kernel.run_device(0, reconcile=True)
-
-    def launches_per_replay(self) -> Optional[int]:
-        """Device launches of one replay of ``run_device``'s captured tick."""
-        return self.kernel.costbook.launches_per_replay("kernel.run")
-
-    def close(self) -> None:
-        self.world = self.kernel = None
-
-
-KINDS = {"world": WorldDeployment}
-
-
-def deploy(cfg: dict, seed: int, device: torch.device):
-    kind = cfg["kind"]
-    if kind not in KINDS:
-        raise ValueError(f"unknown deployment kind {kind!r}")
-    return KINDS[kind](cfg, seed, device)

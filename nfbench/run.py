@@ -4,14 +4,21 @@
 
 The cell (``BENCHMARK.json`` ``workloads``) names a configuration, whose
 file holds the deployment, and a traffic mix, ``nfbench/traffic/<mix>.json``,
-which holds the entry a frame calls and the loop's parameters.  Every
-metric is read by ``nfbench/metrics/<quantity>.py`` (the metric's name up
-to its first dot).  The run:
+which holds the entry a frame calls and the loop's parameters.  Each part
+of a cell is a module found by name (:func:`named`), so a new cell comes
+as added files: the configuration's ``kind`` names its deployment,
+``nfbench/deployments/<kind>.py``, and its check,
+``nfbench/checks/<kind>.py``; the traffic's ``entry`` names
+``nfbench/entries/<entry>.py`` (``.`` written ``_``); every metric is read
+by ``nfbench/metrics/<quantity>.py`` (the metric's name up to its first
+dot).  :mod:`nfbench.program` says what a deployment and an entry expose.
+The run:
 
 1. builds the deployment from the seed on the card and copies its start
    state (set-up; ``setup_s`` runs from the process's start to the first
    timed frame);
-2. warms the entry up with ``warmup_frames`` frames (the captures);
+2. prepares the entry and warms it up with ``warmup_frames`` frames (the
+   captures);
 3. runs a closed loop of frames for ``--seconds``: one frame is one call
    of the entry, ended by a device sync, and the next starts when it
    returns.  The states before and after an early frame (below
@@ -20,7 +27,7 @@ to its first dot).  The run:
    records ``trace_frames`` frames from frame ``trace_from``;
 4. reads the program's peak memory (the process's peak less the check's
    copies), frees the program, and checks the copies against the plain
-   reference (:mod:`nfbench.check`);
+   reference (the kind's check);
 5. prints the numbers compared and their limits on standard error, and
    one JSON line on standard output: the end-to-end metrics with
    ``--trace 0``, the per-layer metrics with ``--trace 1``.
@@ -40,7 +47,8 @@ import os
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .guard import forbidden_modules
 
@@ -81,9 +89,34 @@ def load_benchmark(root: Path = ROOT) -> dict:
         return json.load(f)
 
 
+def named(package: str, name: str) -> ModuleType:
+    """``nfbench/<package>/<name>.py``; a missing one is refused with an
+    error that names the file."""
+    module = f"nfbench.{package}.{name}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise LookupError(f"no module nfbench/{package}/{name}.py") from None
+
+
+def parts(found: dict) -> Tuple[ModuleType, ModuleType, ModuleType]:
+    """The cell's deployment kind, entry and check modules."""
+    kind = found["config"]["kind"]
+    entry = found["traffic"]["entry"]
+    dep = named("deployments", kind)
+    ent = named("entries", entry.replace(".", "_"))
+    chk = named("checks", kind)
+    if kind not in ent.KINDS:
+        raise ValueError(f"the entry {entry!r} drives no deployment of kind {kind!r}")
+    return dep, ent, chk
+
+
 def find_cell(bench: dict, workload: str, root: Path = ROOT) -> dict:
     """The cell's entry, its configuration and traffic mix read from their
-    files, and its metrics (name -> entry), by name."""
+    files, and its metrics (name -> entry), by name; the modules they name
+    must be there."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json")
@@ -97,9 +130,11 @@ def find_cell(bench: dict, workload: str, root: Path = ROOT) -> dict:
     def mine(m):
         return workload in m.get("workloads", [workload])
 
-    return {"cell": cell, "config": config, "traffic": traffic,
-            "end_to_end": [m for m in bench["end_to_end"] if mine(m)],
-            "per_layer": [m for m in bench["per_layer"] if mine(m)]}
+    found = {"cell": cell, "config": config, "traffic": traffic,
+             "end_to_end": [m for m in bench["end_to_end"] if mine(m)],
+             "per_layer": [m for m in bench["per_layer"] if mine(m)]}
+    parts(found)
+    return found
 
 
 def reader(metric: str) -> Callable[[dict], Optional[float]]:
@@ -107,7 +142,7 @@ def reader(metric: str) -> Callable[[dict], Optional[float]]:
     is the metric's name up to its first dot: a metric named
     ``frame_ms_p95.served`` would be the quantity ``frame_ms_p95`` in the
     cells it lists, under a bound of its own."""
-    return importlib.import_module(f"nfbench.metrics.{metric.split('.')[0]}").read
+    return named("metrics", metric.split(".")[0]).read
 
 
 def derived_seed(seed: int) -> int:
@@ -137,11 +172,10 @@ def run_cell(found: dict, seed: int, seconds: float, trace: bool, device,
     import torch
 
     from . import program
-    from .check import LIMITS, passed, reference_inputs, run_check
     from .trace import Tracer
 
     cfg, traffic = found["config"], found["traffic"]
-    entry = traffic["entry"]
+    kind, ent, chk = parts(found)
     on_cuda = device.type == "cuda"
 
     def sync():
@@ -153,7 +187,7 @@ def run_cell(found: dict, seed: int, seconds: float, trace: bool, device,
 
     wseed = derived_seed(seed)
     t0 = time.perf_counter()
-    dep = program.deploy(cfg, wseed, device)
+    dep = kind.deploy(cfg, wseed, device)
     sync()
     build_peak = torch.cuda.max_memory_allocated(device) if on_cuda else 0
     # the check's copies are the harness's: their bytes are taken out of
@@ -169,8 +203,9 @@ def run_cell(found: dict, seed: int, seconds: float, trace: bool, device,
         torch.cuda.reset_peak_memory_stats(device)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    ent.prepare(dep)
     for _ in range(int(traffic["warmup_frames"])):
-        dep.frame(entry)
+        ent.frame(dep)
     sync()
     warm_s = time.perf_counter() - t0
     k = check_frame(seed, 1, int(traffic["early_frames"]))
@@ -195,7 +230,7 @@ def run_cell(found: dict, seed: int, seconds: float, trace: bool, device,
         if tracer is not None and i == trace_from:
             tracer.start()
         f0 = time.perf_counter()
-        dep.frame(entry)
+        ent.frame(dep)
         f1 = time.perf_counter()
         frame_s.append(f1 - f0)
         if i in copy_at:
@@ -215,7 +250,7 @@ def run_cell(found: dict, seed: int, seconds: float, trace: bool, device,
     sync()
     peak = (max(build_peak, torch.cuda.max_memory_allocated(device) - copies_bytes)
             if on_cuda else 0)
-    launches = dep.launches_per_replay()
+    launches = dep.launches_per_replay(ent.BOOK)
     lay = dep.layout()
     entities = dep.entities
     dep.close()
@@ -226,22 +261,19 @@ def run_cell(found: dict, seed: int, seconds: float, trace: bool, device,
     t0 = time.perf_counter()
     stats: Dict[str, int] = {}
     snaps = [s.as_rooms() for s in checked]
-    numbers = run_check(cfg, lay, reference_inputs(cfg, wseed, device),
-                        start.as_rooms(), snaps[:2], snaps[2:], stats=stats,
-                        max_ticks=int(traffic["warmup_frames"]) + int(traffic["early_frames"]))
+    numbers = chk.run_check(cfg, lay, chk.reference_inputs(cfg, wseed, device),
+                            start.as_rooms(), snaps[:2], snaps[2:], stats=stats,
+                            max_ticks=int(traffic["warmup_frames"]) + int(traffic["early_frames"]))
     check_s = time.perf_counter() - t0
     log(f"nfbench: build {build_s:.3f} s, warm-up {warm_s:.3f} s, setup {setup_s:.3f} s, "
         f"window {window_s:.3f} s, {len(frame_s)} frames, check {check_s:.3f} s "
-        f"(frames {k} and {late}; {numbers['cells']} cells; the late frame: "
-        f"{stats.get('combat_hits', 0)} hits, {stats.get('deaths', 0)} deaths, "
-        f"{stats.get('respawns', 0)} respawns); program peak {peak} B, check's copies "
-        f"{copies_bytes} B")
+        f"(frames {k} and {late}; {numbers['cells']} cells; {chk.describe(stats)}); "
+        f"program peak {peak} B, check's copies {copies_bytes} B")
 
     run = {"entities": entities, "frames": len(frame_s), "window_s": window_s,
            "frame_s": frame_s, "setup_s": setup_s, "trace": tr,
            "traced_frames": (trace_from, trace_to) if traced else None, "launches": launches,
-           "pairs_per_frame": stats.get("pairs", 0),
-           "config": cfg, "traffic": traffic}
+           **chk.readings(stats), "config": cfg, "traffic": traffic}
     wanted = found["per_layer"] if trace else found["end_to_end"]
     metrics = {}
     for m in wanted:
@@ -258,11 +290,11 @@ def run_cell(found: dict, seed: int, seconds: float, trace: bool, device,
     if tr is not None:
         dev["busy_s"] = tr["busy_s"]
         dev["window_s"] = tr["window_s"]
-    result = {"correct": passed(numbers), "attempted": len(frame_s), "failed": 0,
+    result = {"correct": chk.passed(numbers), "attempted": len(frame_s), "failed": 0,
               "metrics": metrics, "device": dev}
     if tr is not None:
         result["breakdown"] = tr["breakdown"]
-    result["checks"] = {n: {"value": numbers[n], "limit": LIMITS[n]} for n in LIMITS}
+    result["checks"] = {n: {"value": numbers[n], "limit": lim} for n, lim in chk.LIMITS.items()}
     return result
 
 

@@ -3,9 +3,10 @@ the ``cuda`` tests run only where a card is present (on the card:
 ``python -m pytest nfbench/tests -m cuda``)."""
 
 import copy
-import math
 
 import pytest
+
+from nfbench import run
 
 
 def pytest_configure(config):
@@ -31,24 +32,12 @@ def cpu_threads():
     torch.set_num_threads(prev)
 
 
-def tiny_cell(workload: str, late=(12, 14)) -> dict:
-    """A cell of BENCHMARK.json cut to a size the CPU steps in seconds: a
-    4,096-NPC world at the program's own geometry for that size, and check
-    frames early in the window."""
-    from nfbench import run
-
+def tiny_cell(workload: str, **kw) -> dict:
+    """A cell of BENCHMARK.json cut by its deployment kind's ``tiny`` to a
+    size the CPU runs in seconds."""
     found = copy.deepcopy(run.find_cell(run.load_benchmark(), workload))
-    cfg = found["config"]
-    n = 4096
-    cfg["entities"] = n
-    cfg["recipe"]["seeded"] = n
-    ext = max(64.0, float(math.sqrt(n / 0.4)))
-    cfg["geometry"].update(extent=ext, width=int(ext / 4.0), kv=16, ka=6)
-    cfg["rows"] = {"NPC": n, "Player": 64}
-    cfg["occupied_rows"] = {"NPC": n, "Player": 0}
-    found["traffic"].update(early_frames=4, late_frames=list(late), trace_from=5,
-                            trace_frames=3)
-    return found
+    return run.named("deployments", found["config"]["kind"]).tiny(found, **kw)
 
 
-CELLS = ("world_1m.frames",)
+# every cell of BENCHMARK.json, so that a cell added there is tested here
+CELLS = tuple(w["name"] for w in run.load_benchmark()["workloads"])

@@ -29,7 +29,10 @@ def test_result_line(workload, cpu_threads):
     assert "setup_s" in res["metrics"] and len(res["metrics"]) >= 2
     assert res["metrics"]["setup_s"] == {"value": 2.5, "unit": "s"}
     assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
-    assert res["checks"] == {"cells_off": {"value": 0, "limit": 0}}
+    assert set(res["checks"]) == set(run.parts(found)[2].LIMITS)
+    assert all(c["value"] <= c["limit"] for c in res["checks"].values())
+    if found["config"]["kind"] == "world":
+        assert res["checks"] == {"cells_off": {"value": 0, "limit": 0}}
     json.loads(json.dumps(res))
 
 
@@ -43,10 +46,11 @@ def test_traced_result_line(workload, cpu_threads):
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-def test_no_card_no_result():
+@pytest.mark.parametrize("workload", CELLS)
+def test_no_card_no_result(workload):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    out = subprocess.run([sys.executable, "-m", "nfbench", "--workload", "world_1m.frames",
+    out = subprocess.run([sys.executable, "-m", "nfbench", "--workload", workload,
                           "--seed", "1", "--seconds", "1", "--trace", "0"],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode != 0 and out.stdout.strip() == ""

@@ -18,7 +18,10 @@ def test_top_level_names_compared_whole(name, bad):
 
 
 def test_the_harness_and_the_port_load_no_jax():
-    code = ("import nfbench.run, nfbench.check, nfbench.program, nfbench.control\n"
+    code = ("import importlib, pkgutil, nfbench\n"
+            "for m in pkgutil.walk_packages(nfbench.__path__, 'nfbench.'):\n"
+            "    if '.tests' not in m.name and m.name != 'nfbench.__main__':\n"
+            "        importlib.import_module(m.name)\n"
             "import noahgameframe_tpu_torch.game.world, noahgameframe_tpu_torch.parallel.rooms\n"
             "from nfbench.guard import forbidden_modules\n"
             "print(forbidden_modules())")
@@ -29,7 +32,10 @@ def test_the_harness_and_the_port_load_no_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    code = ("import sys, nfbench.reference.tick, nfbench.reference.build\n"
+    code = ("import importlib, pkgutil, sys, nfbench.checks, nfbench.reference.tick\n"
+            "import nfbench.reference.build\n"
+            "for m in pkgutil.iter_modules(nfbench.checks.__path__, 'nfbench.checks.'):\n"
+            "    importlib.import_module(m.name)\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'noahgameframe_tpu_torch', 'noahgameframe_tpu', 'jax'}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

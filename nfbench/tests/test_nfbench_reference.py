@@ -6,7 +6,8 @@ import pytest
 import torch
 
 from nfbench import program
-from nfbench.check import cells_off, reference_inputs
+from nfbench.checks.world import cells_off, reference_inputs
+from nfbench.deployments import world
 from nfbench.reference.build import initial_rooms
 from nfbench.reference.tick import Geometry, step
 from nfbench.run import derived_seed
@@ -21,7 +22,7 @@ def rooms_start():
     torch.set_num_threads(1)
     cfg = tiny_cell("world_1m.frames")["config"]
     seeds = [derived_seed(s) for s in (99, 100, 2**33 + 1)]
-    dep = program.deploy(cfg, seeds[0], torch.device("cpu"))
+    dep = world.deploy(cfg, seeds[0], torch.device("cpu"))
     snap = program.Snapshot(dep.leaves())
     snap.take(dep.leaves())
     lay = dep.layout()
