@@ -14,7 +14,10 @@ non-zero without printing a result:
    geometry and on edge cases (attack ties, a one-cell siege, bucket
    overflow, grid widths 1, 2, TX + 1 and 13, the Kv = 128 / Ka = 48
    boost ceiling, the chunk kernels, empty slots reached from the
-   origin, inputs at a 4-byte offset), with times;
+   origin, inputs at a 4-byte offset), with times; the buff fold
+   (csrc/buff.cu, built at its first call) at the main path's shapes
+   (2^20 NPC and 64 Player rows, the middleware configuration's 16 kinds)
+   and occupancies 1/8, 1/2 and 1, with its time against its bound;
 3. the main path, with (a): ``build_benchmark_world(1_000_000)`` on
    ``cuda`` under the default engine 1; ``run_device(90)`` as a CUDA
    graph (the default) and as the eager loop from the same state land on
@@ -144,7 +147,12 @@ non-zero without printing a result:
    (with its least bytes), the 1M graph tick with the stack against
    phase 3's tick without it, ``TaskModule._on_kills``' host ms a frame, the
    re-captures and their causes, and each fold's launches (ticks served
-   plus warm-ups).  Held: a checkpoint of the 100k middleware world loads
+   plus warm-ups; the buff fold once per class a tick); the benchmark's
+   middleware world (``build_benchmark_world(1M, middleware=True,
+   buffs=...)``) at BuffList occupancies 1/8, 1/2 and 1 and with short
+   expiries: its graph tick and entity rate, its buff phase and its buff
+   fold against the fold's bound, one fold launch a class a replayed
+   tick.  Held: a checkpoint of the 100k middleware world loads
    into a fresh one with equal banks, module state and next 30 digests;
    the script under ``NF_PALLAS=2`` (100 sessions) launches
    ``fused_neighborhood``; at
@@ -217,9 +225,9 @@ non-zero without printing a result:
 (p) nf-lint of the port (run last, ``phase_lint``): ``run_lint`` over
    ``noahgameframe_tpu_torch/`` against ``nf_lint_torch_baseline.json``
    on the card's host (0 open findings; counts, rules and seconds
-   printed); ``ops/stencil_cuda.py``'s ``CUSTOM_OP_PARITY_TESTS`` keys are
-   exactly the three ``nf::`` ops behind the two kernels, which phase 2
-   held at ``max_abs_err`` 0; and the dynamic twin of ``capture-safety``:
+   printed); the ``CUSTOM_OP_PARITY_TESTS`` keys of ``ops/stencil_cuda.py``
+   and ``ops/buff_cuda.py`` are exactly the ``nf::`` ops behind the hand
+   kernels, which phase 2 held at ``max_abs_err`` 0; and the dynamic twin of ``capture-safety``:
    a ``.item()`` injected in memory into ``Kernel._pack_summary`` is
    flagged by the lint (``overrides=``) from the graph-captured tick's
    root, and in a child process (``--capture-probe``) a 4,096-row config-4
@@ -531,7 +539,8 @@ def phase_kernels():
     max_err = {"combat_fold": max(r["err"][0] for r in results.values()),
                "fused_neighborhood": max(r["err"][1] for r in results.values())}
     rng_timing, rng_err = threefry_vs_plain()
-    return {**timing, **rng_timing}, {**max_err, **rng_err}
+    buff_timing, buff_err = buff_fold_vs_plain()
+    return {**timing, **rng_timing, **buff_timing}, {**max_err, **rng_err, **buff_err}
 
 
 # -- phase 2: the tick's threefry stream -----------------------------------------
@@ -634,6 +643,85 @@ def threefry_vs_plain():
           "wander_cases": cases, "fold_in_cases": len(keys) * len(words) * 2,
           "timing": timing})
     return timing, {"wander": err, "fold_in": fold_bad}
+
+
+# -- phase 2: the buff fold ----------------------------------------------------
+
+#: the benchmark's middleware configuration (its buff recipe)
+MIDDLEWARE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nfbench",
+                                 "configs", "world_1m_middleware.json")
+
+
+def middleware_recipe(**over) -> dict:
+    """The buff recipe of ``world_1m_middleware``, keys in ``over`` replaced."""
+    with open(MIDDLEWARE_CONFIG) as f:
+        return {**json.load(f)["buffs"], **over}
+
+
+def buff_population(c, recipe, tick, seed):
+    """A class's ``BuffList`` at ``c`` rows drawn as the recipe draws them
+    (each of 8 slots used with its probability, a kind, an expiry in its
+    range), with kinds below 0 and beyond the table (clamped) and expiries
+    at the tick in the first 64 rows; (buf [C, 8, 2], used, table [K, 29],
+    tick) on the card, columns ConfigIdx then ExpireTick."""
+    rng = np.random.default_rng(seed)
+    kinds = recipe["kinds"]
+    lo, hi = recipe["expire_ticks"]
+    buf = np.stack([rng.integers(0, len(kinds), (c, 8)),
+                    rng.integers(lo, hi + 1, (c, 8))], axis=-1).astype(np.int32)
+    used = rng.random((c, 8)) < recipe["slots_used"]
+    e = min(c, 64)
+    buf[:e, :, 0] = rng.integers(-3, len(kinds) + 3, (e, 8))
+    buf[:e, :4, 1] = tick
+    used[:e] = True
+    table = np.asarray([[k.get(n, 0) for n in STAT_NAMES] for k in kinds], np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    return t(buf), t(used), t(table), torch.tensor(tick, dtype=torch.int32, device=DEV)
+
+
+def buff_fold_vs_plain():
+    """nf::buff_fold at the main path's shapes (2^20 NPC rows and 64 Player
+    rows, 8 BuffList slots, the configuration's 16 kinds of 29 stats) and
+    at occupancies 1/8, 1/2 and 1, against its plain version on the card
+    and on the CPU bit for bit.  Times at 2^20 rows and occupancy 1/2:
+    mean of 20 launches in a graph (CUDA events); its bound: each row's
+    ConfigIdx, ExpireTick and used flags read, 29 contributions and the
+    used flags written."""
+    from noahgameframe_tpu_torch.ops import buff_cuda
+
+    cap = 1 << int(np.ceil(np.log2(N_MAIN)))
+    tick = 9000
+    cases, err = {}, 0
+    for rows, occupancy in ((cap, 0.125), (cap, 0.5), (cap, 1.0), (64, 0.5)):
+        buf, used, table, t = buff_population(rows, middleware_recipe(slots_used=occupancy),
+                                              tick, 30 + rows % 7)
+        before = sck.KERNELS["buff_fold"].launches
+        got = buff_cuda.buff_fold(buf, used, table, t, 0, 1)
+        check(sck.KERNELS["buff_fold"].launches == before + 1, "nf::buff_fold is one launch")
+        card = buff_cuda.buff_fold_plain(buf, used, table, t, 0, 1)
+        cpu = buff_cuda.buff_fold_plain(buf.cpu(), used.cpu(), table.cpu(), t.cpu(), 0, 1)
+        bad = sum(int((a != b).sum()) + int((a.cpu() != c).sum())
+                  for a, b, c in zip(got, card, cpu))
+        name = f"{rows}x{occupancy}"
+        cases[name] = {"cells_off": bad, "active": int(got[1].sum()),
+                       "expired": int((used & ~got[1]).sum()), "used": int(used.sum())}
+        check(bad == 0, f"nf::buff_fold equals its plain version at {name}")
+        check(cases[name]["expired"] > 0 and cases[name]["active"] > 0,
+              f"the buff fold case {name} has active and expiring rows")
+        err = max(err, bad)
+    buf, used, table, t = buff_population(cap, middleware_recipe(), tick, 30)
+    c, r, nc = buf.shape
+    nbytes = c * (r * nc * 4 + r + table.shape[1] * 4 + r)
+    b = bound_ms(nbytes, 0)
+    timing = {"buff_fold": dict(
+        ms=time_ms(lambda: buff_cuda.buff_fold(buf, used, table, t, 0, 1), graph=True),
+        eager_ms=time_ms(lambda: buff_cuda.buff_fold(buf, used, table, t, 0, 1)),
+        plain_ms=time_ms(lambda: buff_cuda.buff_fold_plain(buf, used, table, t, 0, 1), reps=5),
+        bound_ms=b[0], bound_by=b[1], bytes=nbytes, rows=cap)}
+    timing["buff_fold"]["roofline_pct"] = 100.0 * b[0] / timing["buff_fold"]["ms"]
+    emit({"phase": "buff_fold_vs_plain", "tolerance": 0, "kinds": int(table.shape[0]),
+          "stats": int(table.shape[1]), "tick": tick, "cases": cases, "timing": timing})
+    return timing, {"buff_fold": err}
 
 
 # -- phase 2: the kernels' room axis --------------------------------------------
@@ -3545,7 +3633,9 @@ def buff_phase_ms(w) -> dict:
     from types import SimpleNamespace
 
     k = w.kernel
-    ctx = SimpleNamespace(tick=k.state.tick, store=k.store)
+    # the phase's counters summed as the tick's context sums them
+    ctx = SimpleNamespace(tick=k.state.tick, store=k.store,
+                          count=lambda name, v: torch.sum(v, dtype=torch.int32))
     ms = time_ms(lambda: w.buffs._buff_phase(k.state, ctx), reps=10, warmup=2)
     least = copy = 0
     for cname in w.buffs._rec_cols:
@@ -3623,6 +3713,8 @@ def mw_engine(n: int, sessions: int, *, fold: str) -> tuple:
                              if r["seq"] >= seq0 and r["entry"] == "kernel.step")
     check(launches[fold] == ticks + warm,
           f"(k): {fold} launched once per tick served ({launches} vs {ticks} + {warm})")
+    check(launches["buff_fold"] == 2 * (ticks + warm),
+          f"(k): buff_fold launched once per class (Player, NPC) per tick served ({launches})")
     outcome = mw_outcome(role, seats, credited)
     check(kills["calls"] > calls0, "(k): NPC kills reached TaskModule._on_kills")
     check(max(run["buff_rows"]) == 2 * sessions and run["buff_rows"][-1] == 0,
@@ -3662,6 +3754,52 @@ def mw_parity(device: str):
     out = (sink["sha"].hexdigest(), digests, module_states(role.game_world),
            [str(g) for g in credited])
     role.shut()
+    return out
+
+
+#: (label, BuffList slot occupancy, expiry ticks) of the 1M buff sweep; the
+#: configuration's recipe is the second
+BUFF_SWEEP = (("occupancy_0.125", 0.125, None), ("occupancy_0.5", 0.5, None),
+              ("occupancy_1.0", 1.0, None), ("short_expiry", 0.5, [1, 300]))
+
+
+def buff_sweep() -> dict:
+    """The benchmark's middleware world (``build_benchmark_world(1M,
+    middleware=True, buffs=...)``, the configuration's recipe) at each
+    BUFF_SWEEP occupancy and expiry: the median graph tick and the entity
+    rate it gives, the buff phase by CUDA events, ``buff_fold_kernel`` on
+    the NPC class's state (mean of 20 graph launches) against its bound,
+    and the kernel's launches a replayed tick (one a class)."""
+    from noahgameframe_tpu_torch.ops import buff_cuda
+
+    out = {}
+    for label, occupancy, expire in BUFF_SWEEP:
+        over = {"slots_used": occupancy, **({"expire_ticks": expire} if expire else {})}
+        t0 = time.perf_counter()
+        w = gw.build_benchmark_world(N_MAIN, seed=SEED, device=DEV, middleware=True,
+                                     buffs=middleware_recipe(**over))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        k = w.kernel
+        tick_ms = graph_tick_ms(w)
+        per_replay = k.costbook.entries["kernel.run"].last["kernel_launches_per_replay"]
+        check(per_replay.get("buff_fold") == 2,
+              f"(k): buff_fold launched once per class per replayed tick ({per_replay})")
+        rec = k.state.classes["NPC"].records["BuffList"]
+        _cols, ci, ei = w.buffs._rec_cols["NPC"]
+        table, tick = w.buffs._table, k.state.tick
+        fold_ms = time_ms(lambda: buff_cuda.buff_fold(rec.i32, rec.used, table, tick, ci, ei),
+                          graph=True)
+        c, r, nc = rec.i32.shape
+        bound = (c * (r * nc * 4 + 2 * r + table.shape[1] * 4)) / PEAK_BYTES_PER_S * 1e3
+        out[label] = {"slots_used": occupancy, "expire_ticks": expire or
+                      middleware_recipe()["expire_ticks"], "build_s": build_s,
+                      "tick": int(tick), "npc_buffs_used": int(rec.used.sum()),
+                      "graph_tick_ms": tick_ms, "entity_ticks_per_s": N_MAIN / tick_ms * 1e3,
+                      "buff_phase": buff_phase_ms(w), "fold_ms": fold_ms,
+                      "fold_bound_ms": bound, "fold_roofline_pct": 100.0 * bound / fold_ms}
+        del w, k, rec, table, tick
+        free()
     return out
 
 
@@ -3721,11 +3859,12 @@ def phase_middleware(card: str):
     buff_1m = buff_phase_ms(big)
     del big
     free()
+    sweep = buff_sweep()
     emit({"phase": "middleware", "card": card, "frame_limit_ms": FRAME_LIMIT_MS,
           "batch_100k": line, "batch_100k_engine2": line2,
           "served_batch_beside": {k2: SERVED_BATCH.get(k2) for k2 in (
               "frame_ms_p50", "frame_ms_p99", "waterfall_p50_ms")},
-          "buff_phase_100k": buff_100k, "buff_phase_1m": buff_1m,
+          "buff_phase_100k": buff_100k, "buff_phase_1m": buff_1m, "buff_sweep_1m": sweep,
           "graph_tick_1m_ms": {"middleware": tick_mw,
                                "phase3_no_middleware": MAIN_TICK_MS[0] if MAIN_TICK_MS
                                else None},
@@ -5018,7 +5157,8 @@ PROBE_FN = ("Kernel", "_pack_summary")
 #: each hand kernel and the custom ops that launch it
 KERNEL_OPS = {"combat_fold": ("nf::combat_fold",),
               "fused_neighborhood": ("nf::slot_rows", "nf::fused_neighborhood"),
-              "wander": ("nf::wander",), "fold_in": ("nf::fold_in",)}
+              "wander": ("nf::wander",), "fold_in": ("nf::fold_in",),
+              "buff_fold": ("nf::buff_fold",)}
 
 
 def probe_source():
@@ -5150,7 +5290,9 @@ def phase_lint(card: str, max_err: dict):
     counts = report.to_json()["counts"]
     check(counts["open"] == 0, f"nf-lint: no open finding on the port ({counts})")
     check(not report.stale_baseline, "nf-lint: no stale baseline entry")
-    reg = sck.CUSTOM_OP_PARITY_TESTS
+    from noahgameframe_tpu_torch.ops import buff_cuda
+
+    reg = {**sck.CUSTOM_OP_PARITY_TESTS, **buff_cuda.CUSTOM_OP_PARITY_TESTS}
     check(set(KERNEL_OPS) == set(sck.KERNELS), "every hand kernel has its custom ops")
     check(set(reg) == {op for ops in KERNEL_OPS.values() for op in ops},
           "the registry's keys are exactly the kernels' nf:: ops")
@@ -5269,7 +5411,17 @@ def main() -> int:
          "rooms_plain_ms": room_timing[name]["plain_ms"],
          "rooms_bound_ms": room_timing[name]["bound_ms"],
          "rooms_bound_by": room_timing[name]["bound_by"]}
-        for name in ("combat_fold", "fused_neighborhood")]})
+        for name in ("combat_fold", "fused_neighborhood")] + [
+        # the buff fold at the main path's shape (2^20 NPC rows); it runs
+        # only in middleware worlds
+        {"name": "buff_fold", "route": "cuda", "source": "noahgameframe_tpu_torch/csrc/buff.cu",
+         "replaces": sck.KERNELS["buff_fold"].replaces,
+         "launches_per_tick": 2, "max_abs_err": max_err["buff_fold"],
+         "ms": timing["buff_fold"]["ms"], "eager_ms": timing["buff_fold"]["eager_ms"],
+         "plain_ms": timing["buff_fold"]["plain_ms"],
+         "bound_ms": timing["buff_fold"]["bound_ms"],
+         "bound_by": timing["buff_fold"]["bound_by"],
+         "middleware_launches": middleware_launches["buff_fold"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,7 +12,10 @@ is ``pm.start()`` and :meth:`GameWorld.run` its frame loop.
 the JAX package's format (persist/checkpoint.py).
 
 ``build_benchmark_world`` is BASELINE config 4 (AoE damage plus stat
-recompute) at ~0.4 NPCs per world unit², the world ``bench.py`` times.
+recompute) at ~0.4 NPCs per world unit², the world ``bench.py`` times;
+with ``middleware=True`` it is the game role's own stack at that size,
+and a ``buffs`` recipe gives every NPC timed buffs
+(:meth:`GameWorld.seed_buffs`).
 """
 
 from __future__ import annotations
@@ -251,10 +254,10 @@ class GameWorld:
     def seed_npcs(self, n: int, scene: int = 1, group: int = 0, hp: int = 100,
                   atk: int = 12, deff: int = 3, regen: int = 2,
                   move_speed: int = 30000, camps: int = 2,
-                  rng: Optional[np.random.Generator] = None) -> None:
-        """Bulk-spawn n NPCs with randomized positions/camps.  Draws the
-        same numbers in the same order as the JAX package's seed_npcs, so
-        a seed gives the same world in both."""
+                  rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """Bulk-spawn n NPCs with randomized positions/camps; returns their
+        rows.  Draws the same numbers in the same order as the JAX
+        package's seed_npcs, so a seed gives the same world in both."""
         r = rng or self._rng
         ext = self.config.extent
         pos = r.uniform(0.0, ext, (n, 3)).astype(np.float32)
@@ -285,6 +288,32 @@ class GameWorld:
             self.combat.arm_all()
         if self.regen is not None:
             self.regen.arm_all("NPC")
+        return rows
+
+    def seed_buffs(self, recipe: Dict, rows, seed: int) -> np.ndarray:
+        """Timed buffs on the NPC ``rows`` from a recipe: the kinds
+        ``recipe["kinds"]`` (each a dict of stat deltas) are defined as
+        ``recipe.0``, ``recipe.1``, ...; each of an NPC's ``BuffList``
+        slots is drawn used with probability ``recipe["slots_used"]``, with
+        a kind drawn uniformly and a duration in ticks uniformly in
+        ``recipe["expire_ticks"]`` (both ends included; :func:`buff_draws`,
+        a stream of its own keyed on ``seed``).  An NPC's drawn slots are
+        applied in slot order in one :meth:`BuffModule.apply_buffs` (a kind
+        drawn twice refreshes the first).  Returns which applications
+        took."""
+        if self.buffs is None:
+            raise ValueError("buffs need the middleware stack (WorldConfig.middleware)")
+        lo, hi = (int(t) for t in recipe["expire_ticks"])
+        idx = [self.buffs.define_buff(f"recipe.{i}", hi * self.config.dt, stats)
+               for i, stats in enumerate(recipe["kinds"])]
+        rows = np.asarray(rows, np.int64)
+        slots = self.kernel.store.spec("NPC").records["BuffList"].max_rows
+        used, kind, ticks = buff_draws(seed, rows.size, slots, float(recipe["slots_used"]),
+                                       len(idx), lo, hi)
+        apply = used.reshape(-1)
+        return self.buffs.apply_buffs(
+            "NPC", np.repeat(rows, slots)[apply], np.asarray(idx)[kind.reshape(-1)[apply]],
+            ticks.reshape(-1)[apply])
 
     def tick(self) -> TickOutputs:
         """One frame (``pm.run_once``): host execute() on every module,
@@ -296,16 +325,36 @@ class GameWorld:
         self.pm.run(int(frames))
 
 
+#: the stream of :func:`buff_draws`, beside the world's own draws
+BUFF_STREAM = 1
+
+
+def buff_draws(seed: int, n: int, slots: int, p: float, kinds: int, lo: int, hi: int):
+    """A buff recipe's draws from ``numpy.random.default_rng([seed,
+    BUFF_STREAM])``: which of ``n`` x ``slots`` slots are used (``[n,
+    slots]`` bool, each with probability ``p``), then each slot's kind
+    index in ``[0, kinds)``, then its duration in ticks in ``[lo, hi]``."""
+    r = np.random.default_rng([int(seed), BUFF_STREAM])
+    used = r.random((n, slots)) < p
+    kind = r.integers(0, kinds, (n, slots))
+    ticks = r.integers(lo, hi + 1, (n, slots))
+    return used, kind, ticks
+
+
 def build_benchmark_world(n_npcs: int, extent: Optional[float] = None,
                           combat: bool = True, seed: int = 0,
                           attack_period_s: float = 1.0, player_capacity: int = 64,
-                          device=None, tracer: Optional[SpanTracer] = None) -> GameWorld:
+                          device=None, tracer: Optional[SpanTracer] = None,
+                          middleware: bool = False, buffs: Optional[Dict] = None) -> GameWorld:
     """The staged BASELINE world: density held at ~0.4 NPCs per world
-    unit² so AOI cost scales with N, not with density.
+    unit² so AOI cost scales with N, not with density.  ``middleware``
+    loads the game role's gameplay stack (``WorldConfig.middleware``); a
+    ``buffs`` recipe (which needs it) then gives every NPC timed buffs,
+    :meth:`GameWorld.seed_buffs` keyed on ``seed``.
 
     With ``tracer``, the world's telemetry adopts it, and the build is
-    its span ``world.build`` with ``world.start`` and ``world.seed_npcs``
-    inside."""
+    its span ``world.build`` with ``world.start``, ``world.seed_npcs`` and
+    (with a recipe) ``world.seed_buffs`` inside."""
     tr = tracer if tracer is not None else SpanTracer()  # off: its spans cost nothing
     with tr.span("world.build", npcs=int(n_npcs)):
         if extent is None:
@@ -318,7 +367,7 @@ def build_benchmark_world(n_npcs: int, extent: Optional[float] = None,
                 combat=combat,
                 seed=seed,
                 attack_period_s=attack_period_s,
-                middleware=False,
+                middleware=middleware,
                 player_capacity=player_capacity,
             ),
             device=device,
@@ -329,5 +378,8 @@ def build_benchmark_world(n_npcs: int, extent: Optional[float] = None,
             w.start()
         w.scene.create_scene(1, width=extent)
         with tr.span("world.seed_npcs"):
-            w.seed_npcs(n_npcs)
+            rows = w.seed_npcs(n_npcs)
+        if buffs is not None:
+            with tr.span("world.seed_buffs"):
+                w.seed_buffs(buffs, rows, seed)
     return w

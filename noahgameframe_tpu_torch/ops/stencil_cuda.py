@@ -110,6 +110,8 @@ KERNELS = {
         "fused_neighborhood", "noahgameframe_tpu/ops/stencil_pallas.py:426"),
     "wander": CudaKernel("wander", "noahgameframe_tpu/game/movement.py:42"),
     "fold_in": CudaKernel("fold_in", "noahgameframe_tpu/kernel/kernel.py:401"),
+    # csrc/buff.cu, launched by ops/buff_cuda.py
+    "buff_fold": CudaKernel("buff_fold", "noahgameframe_tpu/game/buff.py:157"),
 }
 
 
@@ -379,28 +381,33 @@ def _nvcc() -> str:
     return found
 
 
-def library() -> ctypes.CDLL:
-    """Build (once per source version) and load csrc/stencil.cu."""
-    global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libnf_stencil_{tag}.so"
-    log = BUILD_DIR / f"libnf_stencil_{tag}.log"
+def build_library(source: Path, stem: str) -> Tuple[ctypes.CDLL, str]:
+    """Build ``source`` with ``nvcc`` (once per source version and flags)
+    into ``csrc/build/<stem>_<tag>.so`` and load it; returns the library
+    and the compiler's output, kept beside it."""
+    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"{stem}_{tag}.so"
+    log = BUILD_DIR / f"{stem}_{tag}.log"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
         log.write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so)
-    BUILD_LOG = log.read_text() if log.exists() else ""
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so)), log.read_text() if log.exists() else ""
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source version) and load csrc/stencil.cu."""
+    global _LIB, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    lib, BUILD_LOG = build_library(SOURCE, "libnf_stencil")
     p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.nf_combat_fold.argtypes = [p, p, i, i, i, i, i, f, i, i, i, i, i, p, p, p]
     lib.nf_combat_fold.restype = i

@@ -49,8 +49,9 @@ far as a count per aten op allows:
   of every output, per op.  A view (an output that aliases an operand
   without writing it) and an uninitialised factory (``empty``) move
   none.  The custom ops ``nf::combat_fold``, ``nf::fused_neighborhood``,
-  ``nf::slot_rows``, ``nf::wander`` and ``nf::fold_in`` are counted by
-  the same rule; their flops have no rule.  The ``profiler::`` range markers (the ``nf.*`` ranges) count
+  ``nf::slot_rows``, ``nf::wander``, ``nf::fold_in`` and
+  ``nf::buff_fold`` are counted by the same rule; their flops have no
+  rule.  The ``profiler::`` range markers (the ``nf.*`` ranges) count
   nothing.  Under ``torch.func.vmap`` (the rooms engine) a custom op's
   batching rule launches the kernel without dispatching the op, so on
   a CUDA device a vmapped fold's bytes are not seen.

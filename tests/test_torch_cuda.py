@@ -710,3 +710,122 @@ def test_traced_capture_times_its_phases_on_the_card(cuda):
     assert entry.copy_ins == copy_ins
     s, o = sorted(sums)[2], sorted(outer)[2]
     assert 0.97 * o <= s <= o * 1.001 + 0.005, (sums, outer)
+
+
+@pytest.mark.parametrize("k,s", [(16, 29), (200, 32)])
+def test_buff_fold_kernel_matches_plain_version(cuda, k, s):
+    """nf::buff_fold over 2^20 rows equals its plain version on the CPU and
+    on the card bit for bit, with its table in shared memory (16 kinds)
+    and read from global memory (200 kinds of 32 stats): kinds clamped
+    from both sides, ``ExpireTick == tick`` inactive, empty and full
+    lists, wrapping int32 sums; one launch."""
+    from noahgameframe_tpu_torch.ops import buff_cuda
+    from test_torch_middleware_world import buff_fold_population
+
+    buf, used, table, tick = buff_fold_population(1 << 20, k, s, k)
+    before = sc.KERNELS["buff_fold"].launches
+    got = buff_cuda.buff_fold(buf.to(cuda), used.to(cuda), table.to(cuda), tick.to(cuda), 0, 1)
+    assert sc.KERNELS["buff_fold"].launches == before + 1
+    want = buff_cuda.buff_fold_plain(buf, used, table, tick, 0, 1)
+    on_card = buff_cuda.buff_fold_plain(buf.to(cuda), used.to(cuda), table.to(cuda),
+                                        tick.to(cuda), 0, 1)
+    for a, b, c in zip(got, want, on_card):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+    # an odd row count and the other column order
+    swapped = buf[:1001].flip(-1).contiguous()
+    got = buff_cuda.buff_fold(swapped.to(cuda), used[:1001].to(cuda), table.to(cuda),
+                              tick.to(cuda), 1, 0)
+    want = buff_cuda.buff_fold_plain(swapped, used[:1001], table, tick, 1, 0)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_buff_fold_kernel_vmapped_matches_room_loop(cuda):
+    """nf::buff_fold under torch.func.vmap over 3 rooms of 2^16 rows: one
+    launch, each room at its own tick (and all at one shared tick), equal
+    bit for bit to the plain version room by room."""
+    from noahgameframe_tpu_torch.ops import buff_cuda
+    from noahgameframe_tpu_torch.parallel.rooms import no_vmap_fallback
+    from test_torch_middleware_world import buff_fold_population
+
+    pops = [buff_fold_population(1 << 16, 16, 29, 5 + r, tick=500 + r) for r in range(3)]
+    buf, used = (torch.stack([p[i] for p in pops]) for i in range(2))
+    table, ticks = pops[0][2], torch.tensor([500, 501, 502], dtype=torch.int32)
+    before = sc.KERNELS["buff_fold"].launches
+    with no_vmap_fallback():
+        got = torch.func.vmap(lambda b, u, t: buff_cuda.buff_fold(b, u, table.to(cuda), t, 0, 1))(
+            buf.to(cuda), used.to(cuda), ticks.to(cuda))
+        shared = torch.func.vmap(lambda b, u: buff_cuda.buff_fold(b, u, table.to(cuda),
+                                                                   ticks[1].to(cuda), 0, 1))(
+            buf.to(cuda), used.to(cuda))
+    assert sc.KERNELS["buff_fold"].launches == before + 2
+    for r in range(3):
+        for t, out in ((ticks[r], got), (ticks[1], shared)):
+            want = buff_cuda.buff_fold_plain(buf[r], used[r], table, t, 0, 1)
+            assert all(torch.equal(a[r].cpu(), b) for a, b in zip(out, want))
+
+
+def test_rooms_of_middleware_worlds_on_the_card_match_the_cpu(cuda):
+    """A RoomBatch of the benchmark's middleware world (1,024 NPCs, short
+    buffs expiring) on the card, its rooms tick a CUDA graph of the
+    vmapped step, lands on the CPU batch's state after 20 ticks, with one
+    ``buff_fold_kernel`` launch a class a replayed rooms tick."""
+    import copy
+
+    from nfbench import run
+    from noahgameframe_tpu_torch.core.prng import prng_key
+    from noahgameframe_tpu_torch.core.store import state_to_numpy
+    from noahgameframe_tpu_torch.parallel.rooms import RoomBatch
+    from test_torch_parity import assert_tree_equal
+
+    found = copy.deepcopy(run.find_cell(run.load_benchmark(), "world_1m.middleware"))
+    recipe = dict(found["config"]["buffs"], expire_ticks=[1, 30])
+
+    def batch(device):
+        w = build_benchmark_world(1024, seed=9, device=device, middleware=True, buffs=recipe)
+        b = RoomBatch(w.kernel, 3)
+        for i in range(3):
+            b.admit(i, w.kernel.state.replace(rng=prng_key(50 + i, device)))
+        return b
+
+    gpu, cpu = batch(cuda), batch("cpu")
+    for _ in range(20):
+        gpu.tick()
+        cpu.tick()
+    for r in range(3):
+        assert_tree_equal(state_to_numpy(cpu.extract(r)), state_to_numpy(gpu.extract(r)))
+    per_replay = gpu.costbook.entries["rooms.step"].last["kernel_launches_per_replay"]
+    assert gpu.costbook.entries["rooms.step"].last["graph"] is True
+    assert per_replay["buff_fold"] == 2
+
+
+def test_middleware_world_on_cuda_matches_cpu_and_marks_its_buff_phase(cuda):
+    """The benchmark's middleware world (4,096 NPCs, every NPC seeded with
+    the configuration's buffs, expiries inside the window) replayed as
+    ``kernel.run`` on the card lands on the CPU's eager state after 40
+    ticks, with one ``buff_fold_kernel`` launch a class a tick (and a
+    class a warm-up run of the capture); captured
+    with the tracer on, the replay's device spans name
+    ``nf.phase.buffs``."""
+    import copy
+
+    from nfbench import run
+    from noahgameframe_tpu_torch.core.store import state_to_numpy
+    from noahgameframe_tpu_torch.telemetry.costbook import WARMUP_RUNS
+    from noahgameframe_tpu_torch.telemetry.tracing import SpanTracer
+    from test_torch_parity import assert_tree_equal
+
+    found = copy.deepcopy(run.find_cell(run.load_benchmark(), "world_1m.middleware"))
+    recipe = dict(found["config"]["buffs"], expire_ticks=[1, 30])
+    worlds = {dev: build_benchmark_world(4096, seed=9, device=dev, middleware=True,
+                                         buffs=recipe, tracer=SpanTracer(enabled=True))
+              for dev in ("cpu", "cuda")}
+    before = sc.KERNELS["buff_fold"].launches
+    worlds["cuda"].kernel.run_device(40, reconcile=False)
+    worlds["cpu"].kernel.run_device(40, reconcile=False, graph=False)
+    # a launch for each of the two classes a tick, and the capture's
+    # eager warm-up runs
+    assert sc.KERNELS["buff_fold"].launches - before == 2 * (40 + WARMUP_RUNS)
+    assert_tree_equal(state_to_numpy(worlds["cpu"].kernel.state),
+                      state_to_numpy(worlds["cuda"].kernel.state))
+    spans = dict(worlds["cuda"].kernel.device_spans())
+    assert "nf.phase.BuffModule.buffs" in spans and spans["nf.phase.BuffModule.buffs"] > 0

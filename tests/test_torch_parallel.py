@@ -95,7 +95,9 @@ def test_sharded_tick_matches_single_device_and_jax(jax_sharded_stream, engine):
     """Golden test: the sharded tick's counter banks (state_digest
     included) equal the single-device tick's and the JAX package's
     sharded tick's, tick by tick, under every combat engine (engines 1
-    and 2 run their kernels' plain versions on the CPU)."""
+    and 2 run their kernels' plain versions on the CPU).  The port's buff
+    phase counts ``buffs_active`` and ``buffs_expired``, which the JAX
+    package's does not: they are held to the single-device tick's."""
     want, _killed, want_state = jax_sharded_stream
     ref = _port_world(engine)
     single = [ref.kernel.tick().counters for _ in range(TICKS)]
@@ -104,10 +106,12 @@ def test_sharded_tick_matches_single_device_and_jax(jax_sharded_stream, engine):
     sk.place()
     got = [sk.tick().counters for _ in range(TICKS)]
     drop = {"aoi_interest_pairs"}  # engine 2's extra occupancy counter
+    port_only = {"buffs_active", "buffs_expired"}
     for t in range(TICKS):
         g = {k: v for k, v in got[t].items() if k not in drop}
         assert g == {k: v for k, v in single[t].items() if k not in drop}, t
-        assert g == want[t], t
+        assert set(g) - set(want[t]) == port_only, t
+        assert {k: v for k, v in g.items() if k not in port_only} == want[t], t
     assert_tree_equal(want_state, state_to_numpy(w.kernel.state))
 
 
